@@ -12,7 +12,7 @@ reference (mutable GT4Py storages, preallocated ``out=`` dicts), these are
 thin declarative wrappers over pure jitted functions — outputs are fresh
 ``jax.Array``s and XLA handles buffer reuse (donation) itself.
 
-Dims use the TPU-native layout: ``("levels", "columns")`` for full-level
+Dims use the column-fast layout: ``("levels", "columns")`` for full-level
 fields, ``("levels+1", "columns")`` for interface fields, ``("levels",)``
 for the eta coordinate.  Field names drop the reference's ``f_`` prefix.
 """
@@ -26,10 +26,7 @@ from cloudsc2_tpu.grid import Grid
 from cloudsc2_tpu.params import Constants
 from cloudsc2_tpu.physics import diagnostics as _diagnostics
 from cloudsc2_tpu.physics import increment as _increment
-from cloudsc2_tpu.physics.adjoint import cloudsc2_ad
-from cloudsc2_tpu.physics.nonlinear import cloudsc2_nl
 from cloudsc2_tpu.physics.saturation import saturation as _saturation
-from cloudsc2_tpu.physics.tangent_linear import cloudsc2_tl
 
 Array = jnp.ndarray
 PropertyDict = Dict[str, Dict[str, Any]]
@@ -275,27 +272,21 @@ _NL_DIAGS = {
 }
 
 
-def _select_impl(impl: str, state: Mapping[str, Array]) -> str:
-    """Resolve impl="auto": Pallas on an accelerator for f32 lane-aligned
-    columns, ``lax.scan`` otherwise (CPU, f64, ragged columns); the shared
-    predicate is :func:`cloudsc2_tpu.dispatch.use_pallas`."""
-    from cloudsc2_tpu.dispatch import PALLAS_IMPLS, use_pallas
+def _run_scheme(comp: "Component", scheme: str, state, timestep: float):
+    """Run ``scheme`` through the single dispatch home
+    (:func:`cloudsc2_tpu.dispatch.scheme_fn`), so every ``impl`` resolves
+    identically here, in the step functions and in the protocols."""
+    from cloudsc2_tpu.dispatch import scheme_fn
 
-    if impl in PALLAS_IMPLS and state["ap"].dtype != jnp.float32:
-        raise ValueError(
-            f"impl={impl!r} requires single precision (TPU Mosaic has no "
-            "f64); use --precision single or impl='scan' (the f64 oracle)"
-        )
-    if impl != "auto":
-        return impl
-    return "pallas" if use_pallas(state, impl) else "scan"
+    fn = scheme_fn(scheme, comp.impl, state["ap"].dtype, comp.constants)
+    return fn(state, timestep, comp.constants)
 
 
 class Cloudsc2NL(Component):
     """Nonlinear CLOUDSC2 (reference
     ``physics/nonlinear/microphysics.py:43-172``): 17 inputs, 4 tendencies,
-    6 diagnostics.  ``impl``: "auto" (Pallas kernel on TPU for f32
-    lane-aligned columns) | "scan" | "pallas" | "pallas-interpret"."""
+    6 diagnostics.  ``impl``: "auto" (the GPU kernel on a GPU in f32) |
+    "scan" | "pallas" | "pallas-interpret" (see :mod:`cloudsc2_tpu.dispatch`)."""
 
     input_properties = _props(_NL_INPUTS)
     tendency_properties = {n: {"dims": FULL, "units": u} for n, u in TEND_UNITS.items()}
@@ -308,14 +299,7 @@ class Cloudsc2NL(Component):
     def __call__(
         self, state: Dict[str, Array], timestep: float
     ) -> Tuple[Dict[str, Array], Dict[str, Array]]:
-        state = self._check_state(state)
-        impl = _select_impl(self.impl, state)
-        from cloudsc2_tpu.dispatch import nl_tl_fns
-
-        # single dispatch home (dispatch.nl_tl_fns) so every impl the
-        # drivers expose — incl. "pallas-tiled" — resolves identically
-        # here and in the protocol objects (no silent scan fallback)
-        return nl_tl_fns(impl)[0](state, timestep, self.constants)
+        return _run_scheme(self, "nl", self._check_state(state), timestep)
 
 
 class Cloudsc2TL(Component):
@@ -341,11 +325,7 @@ class Cloudsc2TL(Component):
     def __call__(
         self, state: Dict[str, Array], timestep: float
     ) -> Tuple[Dict[str, Array], Dict[str, Array]]:
-        state = self._check_state(state)
-        impl = _select_impl(self.impl, state)
-        from cloudsc2_tpu.dispatch import nl_tl_fns
-
-        return nl_tl_fns(impl)[1](state, timestep, self.constants)
+        return _run_scheme(self, "tl", self._check_state(state), timestep)
 
 
 class Cloudsc2AD(Component):
@@ -353,21 +333,11 @@ class Cloudsc2AD(Component):
     nonlinear trajectory + output-side cotangents in, forward tendencies +
     input-side cotangents out.
 
-    Implementation matrix (the reference compiles its AD stencil for any
-    externals, ``adjoint/microphysics.py:46-238``; here the fast path has a
-    config precondition and the scan adjoint is the always-correct oracle):
-
-    ========================  ==========================================
-    constants                 ``impl="pallas"`` resolves to
-    ========================  ==========================================
-    ``LPHYLIN=True`` (any     the two-sweep Pallas kernel pair
-    ``LEVAPLS2/LDRAIN1D``)    (:func:`cloudsc2_tpu.pallas.adjoint.cloudsc2_ad_pallas`)
-    ``LPHYLIN=False``         ``lax.scan`` adjoint (exact, ~10x slower on
-                              TPU) with a ``UserWarning`` — the kernel's
-                              forward sweep is the NL kernel, whose
-                              trajectory coincides with the TL forward
-                              only under linearized physics
-    ========================  ==========================================
+    The GPU kernel (:func:`cloudsc2_tpu.pallas.adjoint.cloudsc2_ad_pallas`)
+    needs ``LPHYLIN=True``: its forward sweep is the NL kernel, whose
+    trajectory coincides with the TL forward only under linearized
+    physics.  ``impl="auto"`` runs the scan adjoint otherwise, and an
+    explicit kernel ``impl`` raises.
     """
 
     input_properties = _props(
@@ -402,22 +372,4 @@ class Cloudsc2AD(Component):
     def __call__(
         self, state: Dict[str, Array], timestep: float
     ) -> Tuple[Dict[str, Array], Dict[str, Array]]:
-        state = self._check_state(state)
-        impl = _select_impl(self.impl, state)
-        c = self.constants
-        from cloudsc2_tpu.dispatch import PALLAS_IMPLS, tl_ad_fns
-
-        if impl in PALLAS_IMPLS:
-            if c.LPHYLIN:
-                return tl_ad_fns(impl)[1](state, timestep, c)
-            import warnings
-
-            warnings.warn(
-                "Cloudsc2AD: LPHYLIN=False has no Pallas kernel (the "
-                "kernel's forward sweep requires linearized physics); "
-                "falling back to the exact lax.scan adjoint (~10x slower "
-                "on TPU). See the Cloudsc2AD implementation matrix.",
-                UserWarning,
-                stacklevel=2,
-            )
-        return cloudsc2_ad(state, timestep, c)
+        return _run_scheme(self, "ad", self._check_state(state), timestep)

@@ -14,10 +14,35 @@ timing dict by the :class:`~cloudsc2_tpu.utils.timing.Timer` accumulator.
 from __future__ import annotations
 
 import dataclasses
+import os
 from dataclasses import dataclass
 from typing import Any, Optional
 
 import numpy as np
+
+#: the checkout's root: the default compile cache sits here whatever the
+#: working directory (``.gitignore`` lists ``.jax_cache/``)
+CHECKOUT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def compile_cache_dir() -> str:
+    """The persistent compilation cache: ``JAX_COMPILATION_CACHE_DIR`` when
+    set, otherwise ``<checkout>/.jax_cache``."""
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or os.path.join(
+        CHECKOUT, ".jax_cache"
+    )
+
+
+def enable_compile_cache() -> str:
+    """Turn the persistent compilation cache on and return its directory.
+    Where ``JAX_COMPILATION_CACHE_DIR`` is set JAX reads it itself and
+    nothing is set here."""
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        import jax
+
+        jax.config.update("jax_compilation_cache_dir", compile_cache_dir())
+        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    return compile_cache_dir()
 
 
 @dataclass(frozen=True)
@@ -33,8 +58,10 @@ class DataTypes:
 class JaxConfig:
     """Execution backend configuration (the GT4PyConfig analogue).
 
-    ``platform``: "tpu" | "cpu" | None (None = environment default).
-    ``rebuild`` maps to clearing the persistent XLA compilation cache;
+    ``platform``: "gpu" | "cpu" | None (None = environment default).
+    ``rebuild`` skips the persistent XLA compilation cache (the analogue
+    of the reference's ``.gt_cache`` compiled-stencil cache, ``rebuild``
+    in ``drivers/config.py:45``; see :func:`compile_cache_dir`);
     ``validate_args`` enables shape/name checks in the component layer.
     """
 
@@ -43,28 +70,24 @@ class JaxConfig:
     validate_args: bool = False
     verbose: bool = True
     dtypes: DataTypes = dataclasses.field(default_factory=DataTypes)
-    #: persistent compilation cache — the analogue of the reference's
-    #: ``.gt_cache`` compiled-stencil cache (``.gitignore:6``,
-    #: ``rebuild=False`` in ``drivers/config.py:45``); indispensable here
-    #: because Mosaic compiles of the TL/AD kernels take minutes
-    cache_dir: Optional[str] = ".jax_cache"
 
     def apply(self) -> None:
         """Apply platform / x64 / compile-cache settings to the live JAX
-        process."""
+        process.  A platform must be chosen before JAX first initializes
+        its backends; asking for one JAX cannot start raises."""
         import jax
 
         if self.platform is not None:
             jax.config.update("jax_platforms", self.platform)
-            if not jax.devices() or jax.devices()[0].platform != self.platform:
-                from jax.extend import backend as _backend
-
-                _backend.clear_backends()
+            got = jax.devices()[0].platform
+            if got != self.platform:
+                raise RuntimeError(
+                    f"asked for platform {self.platform!r}, but JAX runs on {got!r}"
+                )
         if self.dtypes.float == np.float64:
             jax.config.update("jax_enable_x64", True)
-        if self.cache_dir and not self.rebuild:
-            jax.config.update("jax_compilation_cache_dir", self.cache_dir)
-            jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+        if not self.rebuild:
+            enable_compile_cache()
 
 
 @dataclass(frozen=True)

@@ -3,130 +3,86 @@
 """Implementation dispatch: one place mapping an ``impl`` string to the
 scheme functions.
 
-``impl`` values (the TPU analogue of the reference's GT4Py ``--backend``
+``impl`` values (the analogue of the reference's GT4Py ``--backend``
 strings, ``run_nonlinear.py:156-158``):
 
+- ``"auto"`` — the GPU kernel of the scheme on a GPU in float32, the
+  ``lax.scan`` path otherwise (CPU, float64, and the adjoint without
+  linearized physics); see :func:`use_kernel`.
 - ``"scan"`` — ``lax.scan`` paths; any platform and precision (the f64
   oracle).
-- ``"pallas"`` — hand-written TPU kernels; f32 and lane-aligned columns
-  required (:func:`cloudsc2_tpu.pallas.levelscan.level_scan_pallas` raises
-  a clear ``ValueError`` otherwise).
-- ``"pallas-interpret"`` — the kernels in interpreter mode (CPU testing).
-- ``"pallas-tiled"`` — the kernels on tiled-native storage (round 5;
-  state tiled at entry, outputs untiled at exit — the boundary-relayout
-  form, correct but slower than persistent tiled state; use it to run the
-  validation protocols through the tiled kernels.  The FAST form keeps
-  the pipeline state tiled: bench.py chains, driver ``--layout tiled``).
+- ``"pallas"`` — the GPU level-scan kernels (:mod:`cloudsc2_tpu.pallas`).
+- ``"pallas-interpret"`` — the same kernels in interpret mode (CPU
+  testing).
 
-``"auto"`` resolution (pick Pallas when it is known to work) is
-:func:`use_pallas` below, shared by the component layer and the step
-functions.
+An explicit kernel ``impl`` never falls back: where the kernel cannot run
+(float64, or the adjoint with ``LPHYLIN=False``) it raises.
 """
 from __future__ import annotations
 
-from typing import Callable, Mapping, Tuple
+from typing import Any, Callable, Tuple
 
-PALLAS_IMPLS = ("pallas", "pallas-interpret", "pallas-tiled")
+SCHEMES = ("nl", "tl", "ad")
+IMPLS = ("auto", "scan", "pallas", "pallas-interpret")
+KERNEL_IMPLS = ("pallas", "pallas-interpret")
+#: schemes whose GPU kernel beat the scan path on the card (CHANGES.md)
+KERNEL_SCHEMES = ("nl", "tl", "ad")
 
 
-def use_pallas(state: Mapping, impl: str) -> bool:
-    """One auto/explicit Pallas eligibility predicate for every entry point.
+def scheme_fns(scheme: str) -> Tuple[Callable, Callable]:
+    """``(scan, kernel)`` implementations of ``scheme``, each called as
+    ``fn(state, dt, c, **kw)``."""
+    if scheme == "nl":
+        from cloudsc2_tpu.pallas.nonlinear import cloudsc2_nl_pallas
+        from cloudsc2_tpu.physics.nonlinear import cloudsc2_nl
 
-    Explicit ``pallas``/``pallas-interpret``/``pallas-tiled`` always
-    selects the kernel (it raises a clear ValueError on f64 or ragged
-    columns rather than silently degrading to scan); ``auto`` picks the
-    kernel only when it is known to work: f32, lane-aligned columns,
-    accelerator backend.
-    """
-    if impl in PALLAS_IMPLS:
-        return True
-    if impl != "auto":
-        return False
+        return cloudsc2_nl, cloudsc2_nl_pallas
+    if scheme == "tl":
+        from cloudsc2_tpu.pallas.tangent_linear import cloudsc2_tl_pallas
+        from cloudsc2_tpu.physics.tangent_linear import cloudsc2_tl
+
+        return cloudsc2_tl, cloudsc2_tl_pallas
+    if scheme == "ad":
+        from cloudsc2_tpu.pallas.adjoint import cloudsc2_ad_pallas
+        from cloudsc2_tpu.physics.adjoint import cloudsc2_ad
+
+        return cloudsc2_ad, cloudsc2_ad_pallas
+    raise ValueError(f"unknown scheme {scheme!r}; expected one of {SCHEMES}")
+
+
+def use_kernel(impl: str, scheme: str, dtype: Any, c: Any) -> bool:
+    """Whether ``scheme`` runs its kernel for ``impl`` on float ``dtype``
+    fields under constants ``c``; raises where an explicit kernel ``impl``
+    cannot run."""
     import jax
     import jax.numpy as jnp
 
-    from cloudsc2_tpu.pallas.nonlinear import WB
-
-    ap = state["ap"]
-    return (
-        ap.dtype == jnp.float32
-        and ap.shape[1] % (8 * WB) == 0
-        and jax.default_backend() != "cpu"
+    if impl not in IMPLS:
+        raise ValueError(f"impl={impl!r}; expected one of {IMPLS}")
+    runs = (
+        scheme in KERNEL_SCHEMES
+        and jnp.dtype(dtype) == jnp.float32
+        and (scheme != "ad" or c.LPHYLIN)
     )
-
-
-def _tiled_boundary(fn: Callable) -> Callable:
-    """Wrap a state_tiled kernel entry as a standard-layout function:
-    tile the 2-D fields at entry, untile every output dict at exit.
-    Bitwise-identical outputs (asserted by the layout tests)."""
-    from cloudsc2_tpu.pallas.levelscan import tile_state, untile_field
-    from cloudsc2_tpu.pallas.nonlinear import WB
-
-    def wrapped(state, dt, c, **kw):
-        # widest lane tile that divides the column count (the kernels
-        # accept any wb multiple of 128; 512 is the measured best)
-        ncols = state["ap"].shape[1]
-        w = ncols // 8
-        wb = (
-            None if ncols % 8
-            else next((d for d in (WB, 256, 128) if w % d == 0), None)
+    if impl == "auto":
+        return runs and jax.default_backend() == "gpu"
+    if impl == "scan":
+        return False
+    if not runs:
+        raise ValueError(
+            f"impl={impl!r}: no {scheme.upper()} kernel for {jnp.dtype(dtype)} "
+            f"fields with LPHYLIN={c.LPHYLIN} (the kernels take float32, and "
+            "the adjoint kernel needs LPHYLIN=True); use impl='scan'"
         )
-        if wb is None:
-            raise ValueError(
-                f"pallas-tiled needs ncols % 1024 == 0 (got {ncols})"
-            )
-        st = tile_state(state, wb)
-        out = fn(st, dt, c, tile_layout=True, state_tiled=True, **kw)
-        return tuple(
-            {k: untile_field(v) for k, v in d.items()} for d in out
-        )
-
-    return wrapped
+    return True
 
 
-def nl_tl_fns(impl: str) -> Tuple[Callable, Callable]:
-    """(nonlinear, tangent-linear) functions for ``impl``."""
-    if impl in PALLAS_IMPLS:
-        from functools import partial
-
-        from cloudsc2_tpu.pallas.nonlinear import cloudsc2_nl_pallas
-        from cloudsc2_tpu.pallas.tangent_linear import cloudsc2_tl_pallas
-
-        if impl == "pallas-tiled":
-            return (
-                _tiled_boundary(cloudsc2_nl_pallas),
-                _tiled_boundary(cloudsc2_tl_pallas),
-            )
-        interp = impl == "pallas-interpret"
-        return (
-            partial(cloudsc2_nl_pallas, interpret=interp),
-            partial(cloudsc2_tl_pallas, interpret=interp),
-        )
-    from cloudsc2_tpu.physics.nonlinear import cloudsc2_nl
-    from cloudsc2_tpu.physics.tangent_linear import cloudsc2_tl
-
-    return cloudsc2_nl, cloudsc2_tl
-
-
-def tl_ad_fns(impl: str) -> Tuple[Callable, Callable]:
-    """(tangent-linear, adjoint) functions for ``impl``."""
-    if impl in PALLAS_IMPLS:
-        from functools import partial
-
-        from cloudsc2_tpu.pallas.adjoint import cloudsc2_ad_pallas
-        from cloudsc2_tpu.pallas.tangent_linear import cloudsc2_tl_pallas
-
-        if impl == "pallas-tiled":
-            return (
-                _tiled_boundary(cloudsc2_tl_pallas),
-                _tiled_boundary(cloudsc2_ad_pallas),
-            )
-        interp = impl == "pallas-interpret"
-        return (
-            partial(cloudsc2_tl_pallas, interpret=interp),
-            partial(cloudsc2_ad_pallas, interpret=interp),
-        )
-    from cloudsc2_tpu.physics.adjoint import cloudsc2_ad
-    from cloudsc2_tpu.physics.tangent_linear import cloudsc2_tl
-
-    return cloudsc2_tl, cloudsc2_ad
+def scheme_fn(scheme: str, impl: str, dtype: Any, c: Any) -> Callable:
+    """The ``fn(state, dt, c)`` that runs ``scheme`` ("nl", "tl" or "ad")
+    for ``impl``."""
+    scan, kernel = scheme_fns(scheme)
+    if not use_kernel(impl, scheme, dtype, c):
+        return scan
+    if impl == "pallas-interpret":
+        return lambda state, dt, c: kernel(state, dt, c, interpret=True)
+    return kernel

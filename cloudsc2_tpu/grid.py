@@ -1,18 +1,18 @@
 
 # Copyright 2026.
 # Licensed under the Apache License, Version 2.0.
-"""Grid description for the CLOUDSC2 TPU framework.
+"""Grid description for the CLOUDSC2 framework.
 
 The reference builds a ``ComputationalGrid(GridConfig(nx, ny=1, nz))`` with
 symbolic dimensions ``(I, J, K)`` and staggered ``K - 1/2`` interface levels
 (reference: ``drivers/run_nonlinear.py:57``, ``setup.py:51``).  The dummy
-``J = 1`` axis is a GT4Py artifact; TPU-native layout is simply
+``J = 1`` axis is a GT4Py artifact; the layout here is simply
 
     full-level fields      : ``(nlev,     ncols)``
     interface-level fields : ``(nlev + 1, ncols)``
     vertical coordinate    : ``(nlev,)``
 
-with columns on the (fast) lane dimension and levels on the sublane/scan
+with columns on the fast (contiguous) axis and levels on the scan
 dimension.  Columns are fully independent; the vertical is a sequential
 scan direction and is never sharded.
 """

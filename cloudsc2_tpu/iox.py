@@ -1,11 +1,11 @@
 
 # Copyright 2026.
 # Licensed under the Apache License, Version 2.0.
-"""HDF5 I/O and input synthesis for the CLOUDSC2 TPU framework.
+"""Data I/O and input synthesis for the CLOUDSC2 framework.
 
 Re-implements the reference I/O layer (``src/cloudsc2_gt4py/iox.py:212-244``,
 ``setup.py:28-70``, ``physics/nonlinear/reference.py:28-55``) against plain
-h5py + numpy:
+numpy:
 
 * input files use the upstream ECMWF dwarf schema — per-field datasets laid
   out ``(KLEV, KLON)`` (or ``(5, KLEV, KLON)`` for the 5-species ``PCLV`` /
@@ -13,17 +13,21 @@ h5py + numpy:
   reference ``setup.py:56-62``), plus scalar datasets ``KLON``, ``KLEV``,
   ``PTSPHY`` and the namelist constants (``YRECLDP_*`` / ``YREPHLI_*``
   prefixes, reference ``iox.py:230-238``);
-* fields are transposed to the TPU-native ``(nlev, ncols)`` layout (columns
-  on the lane dimension) — note the reference instead expands to an
-  ``(I, J=1, K)`` GT4Py storage;
+* the repository's own data files are ``.npz`` archives holding the same
+  datasets under the same names; upstream HDF5 files (``.h5``) are read
+  through ``h5py``, which is imported only for them (:func:`open_data`);
+* fields are kept in the ``(nlev, ncols)`` layout (columns on the fast
+  axis) — note the reference instead expands to an ``(I, J=1, K)`` GT4Py
+  storage;
 * since the upstream ``input.h5`` is a stripped blob in the mounted
   reference, :func:`synthesize_input` generates a physically plausible state
   with the exact same schema, so real upstream files remain drop-in.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Iterator, Tuple
 
 import numpy as np
 
@@ -92,10 +96,32 @@ def _read_field(f: Any, name: str, species: int | None) -> np.ndarray:
     return np.asarray(data, dtype=np.float64)
 
 
+@contextlib.contextmanager
+def open_data(path: str) -> Iterator[Any]:
+    """Open a data file as a mapping of dataset name to array: an ``.npz``
+    archive through numpy, anything else as an upstream HDF5 file through
+    ``h5py``."""
+    if path.endswith(".npz"):
+        with np.load(path) as f:
+            yield f
+        return
+    try:
+        import h5py
+    except ImportError as e:
+        raise ImportError(
+            f"{path} is read as an HDF5 file, which needs the h5py package "
+            "(pip install h5py, or the project's 'hdf5' extra); the "
+            "repository's own data files are .npz"
+        ) from e
+    with h5py.File(path, "r") as f:
+        yield f
+
+
 def read_state(
     f: Any, ncols: int | None = None, dtype: Any = np.float64
 ) -> Tuple[Grid, Dict[str, np.ndarray]]:
-    """Read the 16 input fields from an open h5py file into ``(nlev, ncols)``."""
+    """Read the 16 input fields from an open data file (:func:`open_data`)
+    into ``(nlev, ncols)``."""
     nlev = int(f["KLEV"][0])
     nlon = int(f["KLON"][0])
     ncols = ncols or nlon
@@ -108,7 +134,7 @@ def read_state(
 
 
 def read_params(f: Any) -> Dict[str, Any]:
-    """Read the six namelist groups from an open h5py file."""
+    """Read the six namelist groups from an open data file."""
     scalars = {}
     for key in f.keys():
         ds = f[key]
@@ -246,84 +272,88 @@ def synthesize_input(
     return grid, state, dt
 
 
-def write_input_h5(
+def write_input(
     path: str,
     state: Dict[str, np.ndarray],
     dt: float,
     params: Dict[str, Any] | None = None,
 ) -> None:
-    """Write a state dict to an HDF5 file in the upstream dwarf schema."""
-    import h5py
-
+    """Write a state dict to an ``.npz`` archive in the upstream dwarf
+    schema (dataset names and shapes as in the upstream ``input.h5``)."""
     nlev, ncols = state["ap"].shape
-    with h5py.File(path, "w") as f:
-        f.create_dataset("KLEV", data=np.array([nlev], dtype=np.int64))
-        f.create_dataset("KLON", data=np.array([ncols], dtype=np.int64))
-        f.create_dataset("PTSPHY", data=np.array([dt], dtype=np.float64))
-        for name, (h5_name, species, _stag) in INPUT_FIELDS.items():
-            if species is not None:
-                if h5_name not in f:
-                    f.create_dataset(h5_name, shape=(5, nlev, ncols), dtype=np.float64)
-                f[h5_name][species] = state[name]
+    data: Dict[str, np.ndarray] = {
+        "KLEV": np.array([nlev], dtype=np.int64),
+        "KLON": np.array([ncols], dtype=np.int64),
+        "PTSPHY": np.array([dt], dtype=np.float64),
+    }
+    for name, (h5_name, species, _stag) in INPUT_FIELDS.items():
+        if species is not None:
+            data.setdefault(h5_name, np.zeros((5, nlev, ncols)))[species] = state[name]
+        else:
+            data[h5_name] = np.asarray(state[name], dtype=np.float64)
+    # unused-but-in-schema cloud fraction field (reference setup.py:49)
+    data["PA"] = np.zeros((nlev, ncols))
+    groups = params or {
+        "yoethf": YoethfParams(),
+        "yomcst": YomcstParams(),
+        "yrecldp": YrecldpParams(),
+        "yrephli": YrephliParams(),
+        "yrncl": YrnclParams(),
+        "yrphnc": YrphncParams(),
+    }
+    prefixes = {"yrecldp": "YRECLDP_", "yrephli": "YREPHLI_"}
+    for gname, group in groups.items():
+        prefix = prefixes.get(gname, "")
+        for field in dataclasses.fields(group):
+            val = getattr(group, field.name)
+            if isinstance(val, bool):
+                arr = np.array([int(val)], dtype=np.int64)
+            elif isinstance(val, int):
+                arr = np.array([val], dtype=np.int64)
             else:
-                f.create_dataset(h5_name, data=np.asarray(state[name], dtype=np.float64))
-        # unused-but-in-schema cloud fraction field (reference setup.py:49)
-        f.create_dataset("PA", data=np.zeros((nlev, ncols)))
-        groups = params or {
-            "yoethf": YoethfParams(),
-            "yomcst": YomcstParams(),
-            "yrecldp": YrecldpParams(),
-            "yrephli": YrephliParams(),
-            "yrncl": YrnclParams(),
-            "yrphnc": YrphncParams(),
-        }
-        prefixes = {"yrecldp": "YRECLDP_", "yrephli": "YREPHLI_"}
-        for gname, group in groups.items():
-            prefix = prefixes.get(gname, "")
-            for field in dataclasses.fields(group):
-                val = getattr(group, field.name)
-                if isinstance(val, bool):
-                    data = np.array([int(val)], dtype=np.int64)
-                elif isinstance(val, int):
-                    data = np.array([val], dtype=np.int64)
-                else:
-                    data = np.array([val], dtype=np.float64)
-                f.create_dataset(prefix + field.name, data=data)
+                arr = np.array([val], dtype=np.float64)
+            data[prefix + field.name] = arr
+    np.savez_compressed(path, **data)
 
 
-def write_reference_h5(
+def write_reference(
     path: str,
     tends: Dict[str, np.ndarray],
     diags: Dict[str, np.ndarray],
 ) -> None:
-    """Write golden tendencies/diagnostics in the reference output schema
-    (datasets as in ``data/reference_double.h5``: ``TENDENCY_LOC_*``,
-    ``PCLC``, ``PCOVPTOT``, ``PFHPSL/N``, ``PFPLSL/N`` + ``KLON``/``KLEV``)."""
-    import h5py
-
+    """Write golden tendencies/diagnostics to an ``.npz`` archive in the
+    reference output schema (datasets as in ``data/reference_double.h5``:
+    ``TENDENCY_LOC_*``, ``PCLC``, ``PCOVPTOT``, ``PFHPSL/N``, ``PFPLSL/N``
+    + ``KLON``/``KLEV``)."""
     nlev, ncols = tends["t"].shape
-    with h5py.File(path, "w") as f:
-        f.create_dataset("KLEV", data=np.array([nlev], dtype=np.int64))
-        f.create_dataset("KLON", data=np.array([ncols], dtype=np.int64))
-        for name, (h5_name, species, _s) in REFERENCE_TENDENCIES.items():
-            if species is not None:
-                if h5_name not in f:
-                    f.create_dataset(h5_name, shape=(5, nlev, ncols), dtype=np.float64)
-                f[h5_name][species] = np.asarray(tends[name], dtype=np.float64)
-            else:
-                f.create_dataset(h5_name, data=np.asarray(tends[name], dtype=np.float64))
-        for name, (h5_name, _sp, _s) in REFERENCE_DIAGNOSTICS.items():
-            f.create_dataset(h5_name, data=np.asarray(diags[name], dtype=np.float64))
+    data: Dict[str, np.ndarray] = {
+        "KLEV": np.array([nlev], dtype=np.int64),
+        "KLON": np.array([ncols], dtype=np.int64),
+    }
+    for name, (h5_name, species, _s) in REFERENCE_TENDENCIES.items():
+        if species is not None:
+            data.setdefault(h5_name, np.zeros((5, nlev, ncols)))[species] = tends[name]
+        else:
+            data[h5_name] = np.asarray(tends[name], dtype=np.float64)
+    for name, (h5_name, _sp, _s) in REFERENCE_DIAGNOSTICS.items():
+        data[h5_name] = np.asarray(diags[name], dtype=np.float64)
+    np.savez_compressed(path, **data)
 
 
 def load_input(
     path: str, ncols: int | None = None, dtype: Any = np.float64
 ) -> Tuple[Grid, Dict[str, np.ndarray], float, Dict[str, Any]]:
     """Load grid, state, timestep and parameter groups from an input file."""
-    import h5py
-
-    with h5py.File(path, "r") as f:
+    with open_data(path) as f:
         grid, state = read_state(f, ncols, dtype)
         dt = read_timestep(f)
         params = read_params(f)
     return grid, state, dt, params
+
+
+def load_reference(
+    path: str, ncols: int | None = None, dtype: Any = np.float64
+) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
+    """Load golden tendencies/diagnostics from a reference file."""
+    with open_data(path) as f:
+        return read_reference(f, ncols, dtype)

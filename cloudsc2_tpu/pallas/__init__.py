@@ -1,15 +1,6 @@
-
 # Copyright 2026.
 # Licensed under the Apache License, Version 2.0.
-"""Hand-written Pallas/Mosaic TPU kernels for the CLOUDSC2 schemes.
-
-The TPU-native equivalent of the reference's runtime-generated GT4Py
-backends (SURVEY.md §2.4): the stencil collections become Pallas kernels
-that keep the sequential vertical recurrence VMEM-resident while columns
-fill the VPU's (8, 128) vector registers.
+"""Hand-written GPU kernels for the CLOUDSC2 schemes (Pallas, Triton
+route): one level-scan kernel (:mod:`cloudsc2_tpu.pallas.levelscan`) whose
+per-level bodies are the physics functions the ``lax.scan`` paths run.
 """
-from cloudsc2_tpu.pallas.adjoint import cloudsc2_ad_pallas
-from cloudsc2_tpu.pallas.nonlinear import cloudsc2_nl_pallas
-from cloudsc2_tpu.pallas.tangent_linear import cloudsc2_tl_pallas
-
-__all__ = ["cloudsc2_nl_pallas", "cloudsc2_tl_pallas", "cloudsc2_ad_pallas"]

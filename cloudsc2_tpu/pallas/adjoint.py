@@ -1,18 +1,17 @@
-
 # Copyright 2026.
 # Licensed under the Apache License, Version 2.0.
-"""Pallas TPU kernels for the adjoint CLOUDSC2 scheme.
+"""GPU kernels for the adjoint CLOUDSC2 scheme.
 
-TPU-native realization of the reference ``cloudsc2_ad`` stencil
+The reference ``cloudsc2_ad`` stencil
 (``physics/adjoint/_stencils/cloudsc2.py:24-996``) as two level-scan
 kernels, mirroring its two ``computation`` phases:
 
-1. **Forward sweep** — the NL Pallas kernel with ``with_trajectory=True``:
+1. **Forward sweep** — the NL kernel with ``with_trajectory=True``:
    recomputes the nonlinear trajectory and stores, per level, only the
-   3-vector carry *entering* the level (rain/snow flux, precip cover).
-   The reference instead materializes ~35 full 3-D temporaries
-   (``adjoint/_stencils/cloudsc2.py:133-476``); storing the carry alone is
-   an O(35→3) HBM saving because everything else is recomputed in 2.
+   carry *entering* the level (rain/snow flux, precipitation cover).  The
+   reference instead materializes ~35 full 3-D temporaries
+   (``adjoint/_stencils/cloudsc2.py:133-476``); everything else is
+   recomputed in the reverse sweep.
 2. **Reverse sweep** — a bottom-up level scan (``reverse=True``) whose body
    is the *transpose of the tangent-linear level function*, obtained by
    ``jax.vjp`` of :func:`~cloudsc2_tpu.physics.tangent_linear.tl_level` at
@@ -20,20 +19,19 @@ kernels, mirroring its two ``computation`` phases:
    perturbation arguments, so the VJP at zero is the exact adjoint —
    including the four ``LREGCL`` regularization factors the reference
    mirrors by hand (``:585-587, 751-757, 774-779, 829-832, 896-902``).
-   Each reverse level re-runs the TL forward from the stored carry (the
-   branch-consistent recompute of the reference's BACKWARD sweep) and
-   back-propagates the 3 carry cotangents held in VMEM scratch.
+   Each reverse level re-runs the TL forward from the stored carry and
+   back-propagates the 3 carry cotangents, held in registers.
 
-Restrictions (fall back to :func:`cloudsc2_tpu.physics.adjoint.cloudsc2_ad`
-otherwise): f32, lane-aligned columns, and ``LPHYLIN=True`` (so the NL
-forward trajectory coincides with the TL forward — the reference's
-linearized physics configuration).  The precipitation-evaporation
-configurations (``LEVAPLS2=True`` / ``LDRAIN1D=True``) are supported: the
-reverse sweep then also back-propagates onto the surface-pressure
-perturbation ``aph_s_i`` (the reference's staggered-surface-pressure
-cotangent path, ``adjoint/_stencils/cloudsc2.py:969-986``), emitted as one
-extra per-level cotangent stream and summed into ``aph_i[nlev]`` at
-assembly.
+The trajectory streams pass through device memory between the kernels.
+
+Restriction: ``LPHYLIN=True``, so that the NL forward trajectory coincides
+with the TL forward (the reference's linearized physics configuration);
+:func:`cloudsc2_tpu.physics.adjoint.cloudsc2_ad` covers the rest.  The
+precipitation-evaporation configurations (``LEVAPLS2`` / ``LDRAIN1D``) are
+supported: the reverse sweep then also back-propagates onto the
+surface-pressure perturbation ``aph_s_i`` (reference
+``adjoint/_stencils/cloudsc2.py:969-986``), emitted as one extra
+per-level cotangent stream and summed into ``aph_i[nlev]`` at assembly.
 """
 from __future__ import annotations
 
@@ -43,62 +41,24 @@ from typing import Dict, Tuple
 import jax
 import jax.numpy as jnp
 
-from cloudsc2_tpu.pallas.levelscan import (
-    level_scan_fwdrev_pallas,
-    level_scan_pallas,
-)
-from cloudsc2_tpu.pallas.nonlinear import cloudsc2_nl_pallas
-from cloudsc2_tpu.physics.nonlinear import (
-    critical_rh_coeffs,
-    scalm_profile,
-    tiled_stream_geometry,
-    tropopause_eta,
-    tropopause_eta_tiled,
+from cloudsc2_tpu.pallas.levelscan import level_scan_pallas
+from cloudsc2_tpu.pallas.nonlinear import (
+    check_kernel_dtype,
+    cloudsc2_nl_pallas,
+    kernel_inputs,
+    with_crh,
 )
 from cloudsc2_tpu.params import Constants
 from cloudsc2_tpu.physics.tangent_linear import TLCarry, tl_level
 
 Array = jnp.ndarray
 
-#: measured on v5e (within-process median-of-repeats A/B, correct
-#: reverse-output chain dependence).  Round-3 unroll matrix at kb=8/wb=512,
-#: (reverse unroll, forward unroll) -> cols/s: (1,1) 9.47-9.51M, (2,2)
-#: 8.96-9.01M, (2,1) 7.52M, (1,2) 7.39M — MATCHED ROLLED wins ~+5%: both
-#: kernels then run ragged (137 rows, no level padding), so the 3
-#: trajectory streams flow between them with no pad/slice relayout, and
-#: mixing a padded kernel with a ragged one pays that relayout on every
-#: stream (the two mixed cells are the two worst).  Round-2's "unroll=2
-#: wins" came from a sweep that only moved kb/wb together and never
-#: measured 8/512/1.  The fused single-kernel variant is parity-at-best
-#: at its compiling configs (8/256/2: 9.01M vs twokernel 9.01M same
-#: process) and its wb=512 configs crash the remote Mosaic compiler —
-#: kept as an option, not the default (sweep_ad_fused.py).  Reverse kb=10
-#: beats kb=8 by a consistent +1.1-1.5% (3 processes x 9 interleaved
-#: samples; kb=11 ties kb=10, kb=14/16 rolled crash Mosaic): 137 levels =
-#: 14 blocks at kb=10 vs 18 at kb=8 — fewer sequential grid steps.
-KB = 10
-WB = 512
-UNROLL = 1
-#: tiled-native forward-sweep level-block height (round 5,
-#: sweep_tl_ad_tiled.py: fwd_kb=20 beats the NL-standalone default by
-#: +1.3-3.4% across 2 processes — the trajectory-writing forward kernel
-#: is more stream-bound than standalone NL, so its optimum sits lower
-#: than the NL kernel's tiled kb=28)
-TILED_FWD_KB = 20
+#: columns per block and warps per block of the reverse kernel, chosen on
+#: the card by ``benchmarks/kernel_vs_scan.py`` (CHANGES.md, PR 1); the
+#: forward sweep uses the NL kernel's own
+BLOCK_COLS = 128
+NUM_WARPS = 2
 
-#: fused single-kernel defaults (see cloudsc2_ad_pallas_fused)
-FUSED_KB = 8
-FUSED_WB = 256
-FUSED_UNROLL = 2
-
-#: forward per-level inputs (as the NL kernel): the interface pressures
-#: enter the scheme only as their difference (one dp stream replaces two
-#: aph slices), and the species/tendency/supsat fields only through the
-#: first-guess combines (q2/ql_fg/qi_fg replace 7 raw streams)
-FWD_INPUTS = (
-    "ap", "dp", "lu_next", "lude", "mf", "q2", "ql_fg", "qi_fg",
-    "qsat", "t_fg",
-)
 #: tangent-input names whose cotangents the reverse kernel produces.
 #: Folded bases: dp_i for the aph pair (aph_i[k] = dp_i[k-1] - dp_i[k]);
 #: q2_i/ql_fg_i/qi_fg_i/t_fg_i for the first-guess combines — the raw
@@ -115,223 +75,90 @@ SEED_NAMES = (
 )
 
 
-@partial(
-    jax.jit,
-    static_argnames=(
-        "dt", "c", "interpret", "kb", "wb", "unroll", "fwd_kb", "fwd_unroll",
-        "tile_layout", "state_tiled", "cotangent_only",
-    ),
-)
+@partial(jax.jit, static_argnames=(
+    "dt", "c", "interpret", "block_cols", "num_warps",
+))
 def cloudsc2_ad_pallas(
     state: Dict[str, Array],
     dt: float,
     c: Constants,
     interpret: bool = False,
-    kb: int | None = None,
-    wb: int | None = None,
-    unroll: int | None = None,
-    fwd_kb: int | None = None,
-    fwd_unroll: int | None = None,
-    tile_layout: bool = False,
-    state_tiled: bool = False,
-    cotangent_only: bool = False,
+    block_cols: int = BLOCK_COLS,
+    num_warps: int = NUM_WARPS,
 ) -> Tuple[Dict[str, Array], Dict[str, Array]]:
     """Drop-in replacement for :func:`cloudsc2_tpu.physics.adjoint.
-    cloudsc2_ad` backed by the forward + reverse Pallas kernels.
-
-    ``tile_layout``/``state_tiled``: tile-contiguous streams / tiled-native
-    state end-to-end — the 3 trajectory streams flow between the two
-    kernels in tiled form with no relayout (see
-    :func:`cloudsc2_tpu.pallas.nonlinear.cloudsc2_nl_pallas`).
-
-    ``cotangent_only=True``: drop the recomputed forward tendency/
-    diagnostic output streams (the reference AD returns them,
-    ``adjoint/microphysics.py:150-218``, because its forward sweep is
-    fused in-stencil; a gradient-only consumer already has them from the
-    NL run) — the forward kernel then writes ONLY the 2-3 trajectory
-    streams (~8 fewer full-grid HBM writes).  Returned dicts contain
-    only the ``cml_*_i`` tendencies and ``*_i`` cotangent diagnostics."""
+    cloudsc2_ad` backed by the forward + reverse GPU kernels."""
     if not c.LPHYLIN:
         raise ValueError(
             "cloudsc2_ad_pallas requires LPHYLIN=True (the kernel's forward "
             "sweep is the NL kernel, whose trajectory coincides with the TL "
-            "forward only under linearized physics; use "
-            "physics.adjoint.cloudsc2_ad otherwise)"
+            "forward only under linearized physics); use impl='scan'"
         )
-    # LEVAPLS2/LDRAIN1D activate the precipitation-evaporation branch
-    # (tangent_linear.py: ``if c.LEVAPLS2 or c.LDRAIN1D``), whose TL depends
-    # on the surface-pressure perturbation aph_s_i — the reverse sweep then
-    # emits its per-level cotangent as an extra stream
-    evap = bool(c.LEVAPLS2 or c.LDRAIN1D)
-    kb = KB if kb is None else kb
-    unroll = UNROLL if unroll is None else unroll
-    if state_tiled:
-        if not tile_layout:
-            raise ValueError("state_tiled requires tile_layout=True")
-        if unroll != 1 or (fwd_unroll or 1) != 1:
-            raise ValueError(
-                "state_tiled requires rolled kernels (unroll=1): the "
-                "padded layouts would re-pad the tiled streams per call"
-            )
-        from cloudsc2_tpu.pallas.levelscan import _check_tiled_state
-
-        _nj_t, nlev, wb, ncols = _check_tiled_state(state["ap"], wb)
-    else:
-        wb = WB if wb is None else wb
-        nlev, ncols = state["ap"].shape
+    check_kernel_dtype(state)
+    ncols = state["ap"].shape[1]
     dtype = state["ap"].dtype
+    evap = bool(c.LEVAPLS2 or c.LDRAIN1D)
 
-    # ---- phase 1: forward trajectory (NL kernel) ----
-    # wb is forwarded so the column-tile requirement is ncols % (8*wb) for
-    # the whole kernel pair (the NL default wb=512 would otherwise silently
-    # demand ncols % 4096 even when the reverse kernel's wb allows less);
-    # when the shape also satisfies the NL kernel's own optimum (wb=512,
-    # measured best on v5e), prefer it.  The level-block height is a
-    # per-kernel knob: the forward sweep defaults to the NL kernel's own
-    # measured-best kb (16) rather than the reverse kernel's VMEM-bound
-    # kb=8 — override with fwd_kb.  The forward UNROLL defaults to
-    # *matching* the reverse kernel's (not the NL kernel's standalone best):
-    # matched unrolls keep both kernels' level layouts identical (both
-    # ragged or both padded), so the 3 trajectory streams flow between
-    # them with no pad/slice relayout — the measured unroll matrix above
-    # puts both mixed cells ~20% below both matched cells.  The one mixed
-    # combination that avoids the relayout is padded-forward → RAGGED
-    # reverse: the ragged harness accepts the trajectory at the forward
-    # kernel's padded height directly (levelscan ``padded_traj`` path).
-    fwd_wb = (
-        wb if state_tiled
-        else (512 if (wb < 512 and ncols % (8 * 512) == 0) else wb)
-    )
-    fwd_u = unroll if fwd_unroll is None else fwd_unroll
-    padded_traj = fwd_u > 1 and unroll == 1 and not state_tiled
-    if state_tiled and fwd_kb is None:
-        fwd_kb = TILED_FWD_KB
     tends_f, diags_f, traj = cloudsc2_nl_pallas(
-        state, dt, c, interpret=interpret, with_trajectory=True, kb=fwd_kb,
-        wb=fwd_wb, unroll=fwd_u, padded_traj=padded_traj,
-        tile_layout=tile_layout, state_tiled=state_tiled,
-        traj_only=cotangent_only,
+        state, dt, c, interpret=interpret, with_trajectory=True
     )
 
-    # ---- reverse-kernel inputs ----
-    fwd, seeds, col_inputs, scalar_inputs = _reverse_problem(
-        state, dt, c, state_tiled=state_tiled
-    )
-
-    # no level padding: the harness's ragged edge block never touches rows
-    # beyond nlev, so seeds/trajectory pass through unpadded
-    level_inputs = dict(fwd)
-    level_inputs.update(seeds)
-    # evap off: the c_cov trajectory stream and the s_covptot_i seed stream
-    # are elided end-to-end.  Two DIFFERENT invariants: the covptot carry is
-    # NOT zero (it is the running max(covptot_in, clc)) but the TL/AD never
-    # READ it outside the evap branch; the covptot *output* (and hence its
-    # cotangent seed) IS constant-zero with evap off.  See the NL wrapper's
-    # elide_covptot — update with whatever is present
-    level_inputs.update(traj)
-
+    level, col_inputs, scalars = kernel_inputs(state, dt, c)
+    level.update(_seeds(state, c))
+    level.update(traj)
     named = level_scan_pallas(
         _make_rev_body(dt, c, evap),
-        level_inputs=level_inputs,
+        level_inputs=level,
         col_inputs=col_inputs,
-        scalar_inputs=scalar_inputs,
+        scalar_inputs=scalars,
         out_names=tuple("cot_" + n for n in XI_NAMES)
         + (("cot_aph_s_i",) if evap else ()),
         ncarry=3,
-        kb=kb,
-        wb=wb,
+        block_cols=block_cols,
+        num_warps=num_warps,
         reverse=True,
-        unroll=unroll,
-        # the reverse body is jax.vjp of the (exactly linear) TL — padded
-        # levels with zero-padded seeds contribute exactly zero to the
-        # carry cotangents (see level_scan_pallas docstring)
-        zero_pad_names=tuple("s_" + n for n in SEED_NAMES if "s_" + n in level_inputs),
-        tile_layout=tile_layout,
-        pre_tiled=state_tiled,
-        keep_tiled=state_tiled,
         interpret=interpret,
+        name="cloudsc2_ad_reverse",
     )
-    return _assemble(
-        named, tends_f, diags_f, nlev, ncols, dtype, dt, c, evap,
-        state_tiled=state_tiled,
-    )
+    return _assemble(named, tends_f, diags_f, ncols, dtype, dt, c, evap)
 
 
-def _reverse_problem(state, dt: float, c: Constants, state_tiled: bool = False):
-    """Level/seed/column/scalar input dicts shared by the two-kernel and
-    fused adjoint paths.  ``state_tiled``: fields are (nj, L, 8, wb); all
-    level-axis slicing moves to axis 1 and the per-column inputs are
-    flattened back to global column order (lane order is identical)."""
-    dtype = state["ap"].dtype
-    eta = state["eta"].astype(dtype)
-    scalm = scalm_profile(eta, c)
-    t_fg = state["t"] + dt * state["tnd_cml_t"]
-    lu = state["lu"]
-    if state_tiled:
-        dp, aph_s, lu_next = tiled_stream_geometry(state["aph"], lu)
-        trpaus = tropopause_eta_tiled(eta, t_fg)
-        iface = lambda v: v[:, 1:]  # noqa: E731 — interface rows 1..nlev
-    else:
-        dp = state["aph"][1:] - state["aph"][:-1]
-        aph_s = state["aph"][-1]
-        lu_next = jnp.concatenate([lu[1:], jnp.zeros_like(lu[:1])], axis=0)
-        trpaus = tropopause_eta(eta, t_fg)
-        iface = lambda v: v[1:]  # noqa: E731
-
-    fwd = {
-        "ap": state["ap"],
-        "dp": dp,
-        "lu_next": lu_next,
-        "lude": state["lude"],
-        # mass fluxes enter only as their sum (and by linearity
-        # cot_mfu = cot_mfd = cot_mf): one stream each way
-        "mf": state["mfu"] + state["mfd"],
-        "q2": state["q"] + dt * state["tnd_cml_q"] + state["supsat"],
-        "ql_fg": state["ql"] + dt * state["tnd_cml_ql"],
-        "qi_fg": state["qi"] + dt * state["tnd_cml_qi"],
-        "qsat": state["qsat"],
-        "t_fg": t_fg,
-    }
-    # cotangent seeds: interface-flux seeds fold their enthalpy partners
-    # (fhpsl = -RLVTT * fplsl) and shift one level (output k = interface k+1)
+def _seeds(state: Dict[str, Array], c: Constants) -> Dict[str, Array]:
+    """Cotangent seed streams.  The interface-flux seeds fold their
+    enthalpy partners (fhpsl = -RLVTT * fplsl) and shift one level (output
+    k is interface k+1).  With the evaporation branch compiled out the
+    covptot output is identically zero, so its seed cannot reach any input
+    cotangent and is not streamed."""
     seeds = {
         "s_tnd_t_i": state["tnd_t_i"],
         "s_tnd_q_i": state["tnd_q_i"],
         "s_tnd_ql_i": state["tnd_ql_i"],
         "s_tnd_qi_i": state["tnd_qi_i"],
         "s_clc_i": state["clc_i"],
-        "s_covptot_i": state["covptot_i"],
-        "s_fplsl_i": iface(state["fplsl_i"]) - c.RLVTT * iface(state["fhpsl_i"]),
-        "s_fplsn_i": iface(state["fplsn_i"]) - c.RLSTT * iface(state["fhpsn_i"]),
+        "s_fplsl_i": state["fplsl_i"][1:] - c.RLVTT * state["fhpsl_i"][1:],
+        "s_fplsn_i": state["fplsn_i"][1:] - c.RLSTT * state["fhpsn_i"][1:],
     }
-    if not (c.LEVAPLS2 or c.LDRAIN1D):
-        # the covptot output is identically zero with the evaporation
-        # branch compiled out, so its cotangent seed cannot influence any
-        # input cotangent (vjp through a constant) — elide the seed stream
-        del seeds["s_covptot_i"]
-    col_inputs = dict(
-        zip(("crh_rh2", "crh_deta1", "crh_rsq"), critical_rh_coeffs(trpaus)),
-        trpaus=trpaus,
-        aph_s=aph_s,
-    )
-    return fwd, seeds, col_inputs, {"eta": eta, "scalm": scalm}
+    if c.LEVAPLS2 or c.LDRAIN1D:
+        seeds["s_covptot_i"] = state["covptot_i"]
+    return seeds
 
 
 def _make_rev_body(dt: float, c: Constants, evap: bool):
     """The reverse level body: ``jax.vjp`` of the exactly-linear TL level,
     re-linearized around the stored forward carry (``x["c_*"]``)."""
 
-    def body(cot, x, col, _g):
+    def body(cot, x, col, _k):
         z = jnp.zeros_like(x["ap"])
-        xfwd = {n: x[n] for n in FWD_INPUTS}
-        xfwd["eta"] = x["eta"]
-        xfwd["scalm"] = x["scalm"]
-        xfwd["crh_rh2"] = col["crh_rh2"]
-        xfwd["crh_deta1"] = col["crh_deta1"]
-        xfwd["crh_rsq"] = col["crh_rsq"]
+        xfwd = with_crh(
+            {n: x[n] for n in (
+                "ap", "dp", "lu_next", "lude", "mf", "q2", "ql_fg", "qi_fg",
+                "qsat", "t_fg", "eta", "scalm",
+            )},
+            col,
+        )
 
         def lin(ci, xi, aph_s_i):
-            # c_cov is elided when the evaporation branch is off (the TL
+            # c_cov is absent when the evaporation branch is off (the TL
             # never reads the covptot carry then)
             carry = TLCarry(x["c_rfl"], x["c_sfl"], x.get("c_cov", z), *ci)
             carry_out, outs = tl_level(
@@ -351,36 +178,24 @@ def _make_rev_body(dt: float, c: Constants, evap: bool):
         outs = {"cot_" + n: xi_cot[n] for n in XI_NAMES}
         if evap:
             # per-level contribution to the surface-pressure cotangent
-            # (tl_level's evaporation branch reads aph_s_i at every level;
-            # the assembly sums the stream into aph_i[nlev])
+            # (tl_level's evaporation branch reads aph_s_i at every level)
             outs["cot_aph_s_i"] = aph_s_cot
         return tuple(ci_cot), outs
 
     return body
 
 
-def _assemble(
-    named, tends_f, diags_f, nlev, ncols, dtype, dt, c, evap,
-    state_tiled: bool = False,
-):
+def _assemble(named, tends_f, diags_f, ncols, dtype, dt, c, evap):
     """Assemble the component outputs (adjoint/microphysics.py:150-218).
 
     The folded cotangent bases expand by linearity of the first-guess
     combines: q2 = q + dt*tnd_cml_q + supsat gives cot_q = cot_supsat =
     cot_q2 and cot_tnd_cml_q = dt*cot_q2 (supsat keeps coefficient 1 —
     the documented exact-transpose deviation, see PARITY.md), and
-    likewise for ql/qi/t.  ``state_tiled``: everything on axis 1.
+    likewise for ql/qi/t.
     """
-    if state_tiled:
-        ax = 1
-        lev_slice = lambda v, sl: v[:, sl]  # noqa: E731
-        sample = named["cot_ap_i"]
-        zrow = jnp.zeros((sample.shape[0], 1, 8, sample.shape[3]), dtype)
-    else:
-        ax = 0
-        lev_slice = lambda v, sl: v[sl]  # noqa: E731
-        zrow = jnp.zeros((1, ncols), dtype)
-    cot = {n: lev_slice(named["cot_" + n], slice(None, nlev)) for n in XI_NAMES}
+    zrow = jnp.zeros((1, ncols), dtype)
+    cot = {n: named["cot_" + n] for n in XI_NAMES}
     tends = dict(tends_f)
     tends["cml_t_i"] = dt * cot["t_fg_i"]
     tends["cml_q_i"] = dt * cot["q2_i"]
@@ -388,20 +203,13 @@ def _assemble(
     tends["cml_qi_i"] = dt * cot["qi_fg_i"]
 
     # dp = aph1 - aph0  =>  aph_i[k] = dp_i[k-1] - dp_i[k] (zero outside)
-    aph_i = jnp.concatenate([zrow, cot["dp_i"]], axis=ax) - jnp.concatenate(
-        [cot["dp_i"], zrow], axis=ax
+    aph_i = jnp.concatenate([zrow, cot["dp_i"]]) - jnp.concatenate(
+        [cot["dp_i"], zrow]
     )
     if evap:
-        # surface-pressure cotangent: every level's evaporation branch reads
-        # aph_s = aph[nlev] (reference ``adjoint/_stencils/cloudsc2.py:
-        # 969-986`` applies the same staggered correction)
-        surf = jnp.sum(
-            lev_slice(named["cot_aph_s_i"], slice(None, nlev)), axis=ax
-        )
-        aph_i = (
-            aph_i.at[:, -1].add(surf) if state_tiled
-            else aph_i.at[-1].add(surf)
-        )
+        # every level's evaporation branch reads aph_s = aph[nlev]
+        # (reference ``adjoint/_stencils/cloudsc2.py:969-986``)
+        aph_i = aph_i.at[-1].add(jnp.sum(named["cot_aph_s_i"], axis=0))
     diags = dict(diags_f)
     diags.update(
         ap_i=cot["ap_i"],
@@ -411,130 +219,10 @@ def _assemble(
         qsat_i=cot["qsat_i"],
         ql_i=cot["ql_fg_i"],
         qi_i=cot["qi_fg_i"],
-        lu_i=jnp.concatenate(
-            [zrow, lev_slice(cot["lu_next_i"], slice(None, -1))], axis=ax
-        ),
+        lu_i=jnp.concatenate([zrow, cot["lu_next_i"][:-1]]),
         lude_i=cot["lude_i"],
         mfd_i=cot["mf_i"],
         mfu_i=cot["mf_i"],
         supsat_i=cot["q2_i"],
     )
     return tends, diags
-
-
-@partial(
-    jax.jit,
-    static_argnames=(
-        "dt", "c", "interpret", "kb", "wb", "unroll", "resident",
-        "state_tiled",
-    ),
-)
-def cloudsc2_ad_pallas_fused(
-    state: Dict[str, Array],
-    dt: float,
-    c: Constants,
-    interpret: bool = False,
-    kb: int | None = None,
-    wb: int | None = None,
-    unroll: int | None = None,
-    resident: bool = False,
-    state_tiled: bool = False,
-) -> Tuple[Dict[str, Array], Dict[str, Array]]:
-    """Single-kernel adjoint: forward NL sweep + reverse transpose sweep
-    fused into ONE ``pallas_call`` — the reference's execution shape (both
-    sweeps in one stencil, ``adjoint/_stencils/cloudsc2.py:24-996``).
-
-    Versus :func:`cloudsc2_ad_pallas` this keeps the per-level trajectory
-    carry in a VMEM stack instead of round-tripping 3 streams through HBM
-    (and with ``resident=True`` the reverse phase also reads the 11 forward
-    input streams from VMEM stacks filled during the forward sweep instead
-    of re-fetching them — 17 fewer full-grid stream traversals in total).
-    Same restrictions and outputs as :func:`cloudsc2_ad_pallas`.
-    """
-    if not c.LPHYLIN:
-        raise ValueError(
-            "cloudsc2_ad_pallas_fused requires LPHYLIN=True (see "
-            "cloudsc2_ad_pallas)"
-        )
-    evap = bool(c.LEVAPLS2 or c.LDRAIN1D)
-    # own defaults: the fused kernel's Mosaic-compiling envelope is smaller
-    # than the two-kernel pipeline's (the twokernel default 8/512/1 crashes
-    # the remote compiler when fused); 8/256/2 is its measured-best
-    # compiling config (9.01M cols/s, parity with twokernel same-process)
-    if state_tiled:
-        # tiled-native fused path (round 5): rolled only; wb fixed by the
-        # tiled state; kb defaults to the two-kernel reverse default
-        kb = KB if kb is None else kb
-        unroll = 1 if unroll is None else unroll
-        if unroll != 1:
-            raise ValueError("state_tiled fused requires unroll=1")
-        from cloudsc2_tpu.pallas.levelscan import _check_tiled_state
-
-        nj_t, nlev, wb, ncols = _check_tiled_state(state["ap"], wb)
-    else:
-        kb = FUSED_KB if kb is None else kb
-        wb = FUSED_WB if wb is None else wb
-        unroll = FUSED_UNROLL if unroll is None else unroll
-        nlev, ncols = state["ap"].shape
-    dtype = state["ap"].dtype
-
-    fwd, seeds, col_inputs, scalar_inputs = _reverse_problem(
-        state, dt, c, state_tiled=state_tiled
-    )
-
-    from cloudsc2_tpu.physics.nonlinear import NLCarry, nl_level
-
-    def fwd_body(carry, x, col, _g):
-        x = dict(
-            x, crh_rh2=col["crh_rh2"], crh_deta1=col["crh_deta1"],
-            crh_rsq=col["crh_rsq"],
-        )
-        carry, outs, _aux = nl_level(
-            NLCarry(*carry), x, col["aph_s"], col["trpaus"], dt, c
-        )
-        return tuple(carry), outs
-
-    named = level_scan_fwdrev_pallas(
-        fwd_body,
-        _make_rev_body(dt, c, evap),
-        level_inputs=fwd,
-        seed_inputs=seeds,
-        col_inputs=col_inputs,
-        scalar_inputs=scalar_inputs,
-        fwd_out_names=(
-            "tnd_t", "tnd_q", "tnd_ql", "tnd_qi", "clc", "covptot",
-            "fplsl", "fplsn",
-        ),
-        rev_out_names=tuple("cot_" + n for n in XI_NAMES)
-        + (("cot_aph_s_i",) if evap else ()),
-        traj_names=("c_rfl", "c_sfl", "c_cov"),
-        ncarry_rev=3,
-        kb=kb,
-        wb=wb,
-        unroll=unroll,
-        resident=resident,
-        tiled=state_tiled,
-        interpret=interpret,
-    )
-
-    if state_tiled:
-        zrow = jnp.zeros((nj_t, 1, 8, wb), dtype)
-        cat_ax = 1
-    else:
-        zrow = jnp.zeros((1, ncols), dtype)
-        cat_ax = 0
-    fplsl = jnp.concatenate([zrow, named["fplsl"]], axis=cat_ax)
-    fplsn = jnp.concatenate([zrow, named["fplsn"]], axis=cat_ax)
-    tends_f = {n: named["tnd_" + n] for n in ("t", "q", "ql", "qi")}
-    diags_f = {
-        "clc": named["clc"],
-        "covptot": named["covptot"],
-        "fplsl": fplsl,
-        "fplsn": fplsn,
-        "fhpsl": -fplsl * c.RLVTT,
-        "fhpsn": -fplsn * c.RLSTT,
-    }
-    return _assemble(
-        named, tends_f, diags_f, nlev, ncols, dtype, dt, c, evap,
-        state_tiled=state_tiled,
-    )

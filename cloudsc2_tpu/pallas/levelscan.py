@@ -1,402 +1,36 @@
-
 # Copyright 2026.
 # Licensed under the Apache License, Version 2.0.
-"""Generic Pallas harness for vertical-scan column physics.
+"""Generic GPU level-scan kernel for vertical column physics (Pallas,
+Triton route).
 
 All CLOUDSC2 schemes share one execution shape: a strictly sequential
-top-down sweep over levels with a small per-column carry, over thousands of
-independent columns (SURVEY.md §5 "long-context" analogue).  This harness
-factors the TPU memory orchestration out of the physics:
+sweep over levels with a small per-column carry, over many independent
+columns.  :func:`level_scan_pallas` runs that shape as one kernel:
 
-* ``(nlev, ncols)`` fields are viewed ``(nlev, 8, ncols // 8)`` so a level
-  slice is a native ``(8, 128k)`` VPU tile;
-* the kernel grid is ``(column_tiles, level_blocks)`` — the level axis
-  iterates fastest, TPU grid execution is sequential, and the carry lives
-  in a VMEM scratch persisting across level blocks;
-* every level block streams ``kb`` levels of all inputs HBM→VMEM
-  (double-buffered by the pallas pipeline) and writes all outputs: exactly
-  one HBM round trip, the roofline for these memory-bound schemes;
-* per-level scalars (eta coordinate, ``scalm``) ride in SMEM.
+* a one-dimensional grid over blocks of ``block_cols`` columns; blocks are
+  independent and run in any order on the card's SMs;
+* inside a block, a ``fori_loop`` over the levels (top-down, or bottom-up
+  with ``reverse=True``); each thread owns its columns and the carry stays
+  in registers for the whole sweep;
+* each level reads one coalesced, masked row of every input
+  (``ref.at[k, pl.ds(j * B, B)]``) and writes one row of every output, so
+  every stream crosses device memory exactly once; the last block masks
+  the columns past ``ncols``, so any column count is accepted;
+* per-level scalars (eta, the scaling profile) are scalar loads.
 
-The per-level physics body is the same function used by the ``lax.scan``
-reference path, so kernels cannot drift from their f64 oracle.
+The per-level body is the same function the ``lax.scan`` reference path
+runs (``nl_level`` / ``tl_level``), so the two cannot drift.
 """
 from __future__ import annotations
 
-import math
-from functools import partial
-from typing import Callable, Dict, Sequence, Tuple
+from typing import Callable, Dict, Sequence
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 Array = jnp.ndarray
-
-
-def _pad_levels(x: Array, kp: int, zero: bool = False) -> Array:
-    pad = ((0, kp - x.shape[0]),) + ((0, 0),) * (x.ndim - 1)
-    return jnp.pad(x, pad) if zero else jnp.pad(x, pad, mode="edge")
-
-
-def tile_field(v: Array, wb: int) -> Array:
-    """``(L, ncols)`` -> tiled storage ``(nj, L, 8, wb)`` (one contiguous
-    HBM extent per column tile; see ``level_scan_pallas`` ``tile_layout``).
-    1-D ``(ncols,)`` fields tile to ``(nj, 8, wb)``."""
-    if v.ndim == 1:
-        ncols = v.shape[0]
-        return v.reshape(8, ncols // 8 // wb, wb).transpose(1, 0, 2)
-    h, ncols = v.shape
-    return v.reshape(h, 8, ncols // 8 // wb, wb).transpose(2, 0, 1, 3)
-
-
-def untile_field(v: Array) -> Array:
-    """Inverse of :func:`tile_field`."""
-    if v.ndim == 3:
-        nj, _, wb = v.shape
-        return v.transpose(1, 0, 2).reshape(8 * nj * wb)
-    nj, h, _, wb = v.shape
-    return v.transpose(1, 2, 0, 3).reshape(h, 8 * nj * wb)
-
-
-def tile_state(state: Dict[str, Array], wb: int = 512) -> Dict[str, Array]:
-    """Tile every 2-D ``(L, ncols)`` field of a state dict
-    (:func:`tile_field`); 1-D per-level fields (``eta``) and scalars pass
-    through.  The single home for the whole-state conversion used by the
-    bench chains, drivers, dispatch boundary and sweeps."""
-    return {
-        k: (tile_field(v, wb) if getattr(v, "ndim", 0) == 2 else v)
-        for k, v in state.items()
-    }
-
-
-def _check_tiled_state(ap: Array, wb, what: str = "state"):
-    """Shared (nj, L, 8, wb) validation for the kernel wrappers'
-    ``state_tiled`` mode; returns ``(nj, nlev, wb, ncols)``."""
-    if ap.ndim != 4 or ap.shape[2] != 8:
-        raise ValueError(
-            f"tiled {what} fields must be (nj, L, 8, wb); got {ap.shape}"
-        )
-    nj, nlev, _, wb_t = ap.shape
-    if wb is not None and wb != wb_t:
-        raise ValueError(f"wb={wb} conflicts with tiled {what} wb={wb_t}")
-    return nj, nlev, wb_t, nj * 8 * wb_t
-
-
-def level_scan_fwdrev_pallas(
-    fwd_body: Callable,
-    rev_body: Callable,
-    *,
-    level_inputs: Dict[str, Array],
-    seed_inputs: Dict[str, Array],
-    col_inputs: Dict[str, Array],
-    scalar_inputs: Dict[str, Array],
-    fwd_out_names: Sequence[str],
-    rev_out_names: Sequence[str],
-    traj_names: Sequence[str],
-    ncarry_rev: int,
-    kb: int,
-    wb: int,
-    unroll: int = 1,
-    resident: bool = False,
-    tiled: bool = False,
-    interpret: bool = False,
-) -> Dict[str, Array]:
-    """Fused forward + reverse level scan in ONE kernel — the adjoint's
-    execution shape (reference ``adjoint/_stencils/cloudsc2.py:24-996``
-    does both sweeps in one stencil).
-
-    The grid is ``(column_tiles, 2 * level_blocks)``: the first half of the
-    level axis sweeps top-down running ``fwd_body`` (the NL level) while
-    snapshotting the carry *entering* each level into a VMEM trajectory
-    stack (``len(traj_names)`` stacks of ``(klev, 8, wb)``); the second
-    half sweeps bottom-up running ``rev_body`` (the TL transpose), which
-    receives the stacked carry back as ``x[traj_names[j]]``.  Versus the
-    two-kernel pipeline this removes the trajectory round trip through HBM
-    (3 streams written + 3 read at the benchmark shape).
-
-    ``rev_body(cot, x, col, g)`` sees ``x`` = level inputs + seed inputs +
-    trajectory entries; ``fwd_body(carry, x, col, g)`` sees level inputs
-    only.  Seed streams are only fetched during the reverse phase (their
-    index map parks on the turnaround block during the forward phase).
-
-    ``resident=True`` additionally copies every level-input block into a
-    VMEM stack during the forward sweep and reads the reverse phase's
-    inputs from VMEM instead of re-fetching them from HBM — removing the
-    second read of all ``len(level_inputs)`` forward streams at the cost
-    of ``len(level_inputs)`` extra ``(klev, 8, wb)`` VMEM stacks (~2.2 MB
-    each at wb=512, f32); shrink ``wb`` if VMEM binds.
-
-    Level padding follows :func:`level_scan_pallas`: rolled (``unroll=1``)
-    runs ragged with no padding; ``unroll>1`` pads to a ``kb`` multiple
-    with seeds zero-padded — the padded rows are swept first from the zero
-    cotangent carry and, because ``rev_body`` is linear in (carry, seeds),
-    contribute exactly zero.
-    """
-    names = tuple(level_inputs)
-    seed_names = tuple(seed_inputs)
-    col_names = tuple(col_inputs)
-    scal_names = tuple(scalar_inputs)
-    fwd_out_names = tuple(fwd_out_names)
-    rev_out_names = tuple(rev_out_names)
-    traj_names = tuple(traj_names)
-    ncarry_fwd = len(traj_names)
-
-    sample = next(iter(level_inputs.values()))
-    if tiled:
-        # tiled-native: every level/seed input is (nj, L, 8, wb) and the
-        # outputs come back tiled (see level_scan_pallas tile_layout);
-        # rolled only — the padded layout would re-pad tiled streams
-        if unroll != 1:
-            raise ValueError("tiled fwdrev requires unroll=1 (rolled)")
-        if wb != sample.shape[3]:
-            raise ValueError(
-                f"wb={wb} conflicts with tiled inputs wb={sample.shape[3]}"
-            )
-        nlev = sample.shape[1]
-        ncols = sample.shape[0] * 8 * wb
-    else:
-        nlev, ncols = sample.shape
-    dtype = sample.dtype
-    if dtype == jnp.float64:
-        raise ValueError(
-            "Pallas kernels require single precision (TPU Mosaic has no f64); "
-            "use the lax.scan implementation (the f64 oracle) instead"
-        )
-    if ncols % (8 * wb) != 0:
-        raise ValueError(f"ncols={ncols} must be a multiple of {8 * wb}")
-    w = ncols // 8
-    nj = w // wb
-    kp = math.ceil(nlev / kb) * kb
-    nkb = kp // kb
-    u = max(min(unroll, kb), 1)
-    ragged = u == 1
-    klev = nlev if ragged else kp
-    if u > 1 and kb % u != 0:
-        raise ValueError(f"unroll={u} must divide kb={kb}")
-
-    def kernel(*refs):
-        n_s, n_l, n_sd, n_c = (
-            len(scal_names), len(names), len(seed_names), len(col_names),
-        )
-        n_fo, n_ro = len(fwd_out_names), len(rev_out_names)
-        scal_refs = refs[:n_s]
-        level_refs = refs[n_s : n_s + n_l]
-        seed_refs = refs[n_s + n_l : n_s + n_l + n_sd]
-        col_refs = refs[n_s + n_l + n_sd : n_s + n_l + n_sd + n_c]
-        out0 = n_s + n_l + n_sd + n_c
-        fwd_out_refs = refs[out0 : out0 + n_fo]
-        rev_out_refs = refs[out0 + n_fo : out0 + n_fo + n_ro]
-        carry_ref = refs[out0 + n_fo + n_ro]
-        traj_refs = refs[out0 + n_fo + n_ro + 1 : out0 + n_fo + n_ro + 1 + ncarry_fwd]
-        res_refs = refs[out0 + n_fo + n_ro + 1 + ncarry_fwd :]
-
-        t_id = pl.program_id(1)
-        is_fwd = t_id < nkb
-
-        @pl.when(t_id == 0)
-        def _init_fwd():
-            carry_ref[...] = jnp.zeros_like(carry_ref)
-
-        @pl.when(t_id == nkb)
-        def _init_rev():
-            for j in range(ncarry_rev):
-                carry_ref[ncarry_fwd + j] = jnp.zeros_like(carry_ref[0])
-
-        col = {n: r[...] for n, r in zip(col_names, col_refs)}
-        ar_kb = jnp.where(is_fwd, t_id, 2 * nkb - 1 - t_id)
-        valid = jnp.minimum(kb, klev - ar_kb * kb) if ragged else kb
-
-        def scalars_at(g):
-            return {n: r[g, 0] for n, r in zip(scal_names, scal_refs)}
-
-        def _rd(r, row):
-            return r[0, row] if tiled else r[row]
-
-        def fwd_step(row, carry):
-            x = {n: _rd(r, row) for n, r in zip(names, level_refs)}
-            g = ar_kb * kb + row
-            x.update(scalars_at(g))
-            for j in range(ncarry_fwd):
-                traj_refs[j][g] = carry[j]
-            if resident:
-                for r_in, r_res in zip(level_refs, res_refs):
-                    r_res[g] = _rd(r_in, row)
-            carry, outs = fwd_body(carry, x, col, g)
-            for n, r in zip(fwd_out_names, fwd_out_refs):
-                if tiled:
-                    r[0, row] = outs[n]
-                else:
-                    r[row] = outs[n]
-            return carry
-
-        def rev_step(row, cot):
-            g = ar_kb * kb + row
-            if resident:
-                x = {n: r[g] for n, r in zip(names, res_refs)}
-            else:
-                x = {n: _rd(r, row) for n, r in zip(names, level_refs)}
-            for n, r in zip(seed_names, seed_refs):
-                x[n] = _rd(r, row)
-            x.update(scalars_at(g))
-            for j, n in enumerate(traj_names):
-                x[n] = traj_refs[j][g]
-            cot, outs = rev_body(cot, x, col, g)
-            for n, r in zip(rev_out_names, rev_out_refs):
-                if tiled:
-                    r[0, row] = outs[n]
-                else:
-                    r[row] = outs[n]
-            return cot
-
-        # ---- forward phase ----
-        @pl.when(is_fwd)
-        def _fwd_phase():
-            carry = tuple(carry_ref[j] for j in range(ncarry_fwd))
-            if u >= kb:
-                for i in range(kb):
-                    carry = fwd_step(i, carry)
-            elif u > 1:
-                def block(b, carry):
-                    for j in range(u):
-                        carry = fwd_step(b * u + j, carry)
-                    return carry
-
-                carry = jax.lax.fori_loop(0, kb // u, block, carry)
-            else:
-                carry = jax.lax.fori_loop(
-                    0, valid, lambda i, cs: fwd_step(i, cs), carry
-                )
-            for j in range(ncarry_fwd):
-                carry_ref[j] = carry[j]
-
-        # ---- reverse phase ----
-        @pl.when(jnp.logical_not(is_fwd))
-        def _rev_phase():
-            cot = tuple(
-                carry_ref[ncarry_fwd + j] for j in range(ncarry_rev)
-            )
-            if u >= kb:
-                for i in range(kb):
-                    cot = rev_step(kb - 1 - i, cot)
-            elif u > 1:
-                def block(b, cot):
-                    for j in range(u):
-                        cot = rev_step(kb - 1 - (b * u + j), cot)
-                    return cot
-
-                cot = jax.lax.fori_loop(0, kb // u, block, cot)
-            else:
-                cot = jax.lax.fori_loop(
-                    0, valid, lambda i, cs: rev_step(valid - 1 - i, cs), cot
-                )
-            for j in range(ncarry_rev):
-                carry_ref[ncarry_fwd + j] = cot[j]
-
-    # ---- block specs ----
-    # forward inputs: block t going up, then 2*nkb-1-t coming down (each
-    # block fetched twice unless resident, where the reverse phase reads
-    # the VMEM stacks and the map parks on the turnaround block)
-    if resident:
-        def level_ix(j, t):
-            return (jnp.minimum(t, nkb - 1), 0, j)
-    else:
-        def level_ix(j, t):
-            return (jnp.where(t < nkb, t, 2 * nkb - 1 - t), 0, j)
-
-    # seeds + reverse outputs: parked on the turnaround block during the
-    # forward phase (fetched/written once per block, reverse order)
-    def rev_ix(j, t):
-        return (jnp.where(t < nkb, nkb - 1, 2 * nkb - 1 - t), 0, j)
-
-    # forward outputs: written going up, parked on the last block after
-    def fwd_ix(j, t):
-        return (jnp.minimum(t, nkb - 1), 0, j)
-
-    if tiled:
-        # tiled maps: array (nj, klev, 8, wb); the level coordinate is the
-        # original map's first coordinate, moved to axis 1
-        def tile_map(ix):
-            def m(j, t):
-                k0, _z, _j = ix(j, t)
-                return (j, k0, 0, 0)
-
-            return m
-
-        level_spec = pl.BlockSpec(
-            (1, kb, 8, wb), tile_map(level_ix), memory_space=pltpu.VMEM
-        )
-        seed_spec = pl.BlockSpec(
-            (1, kb, 8, wb), tile_map(rev_ix), memory_space=pltpu.VMEM
-        )
-        fwd_out_spec = pl.BlockSpec(
-            (1, kb, 8, wb), tile_map(fwd_ix), memory_space=pltpu.VMEM
-        )
-        rev_out_spec = pl.BlockSpec(
-            (1, kb, 8, wb), tile_map(rev_ix), memory_space=pltpu.VMEM
-        )
-    else:
-        level_spec = pl.BlockSpec((kb, 8, wb), level_ix, memory_space=pltpu.VMEM)
-        seed_spec = pl.BlockSpec((kb, 8, wb), rev_ix, memory_space=pltpu.VMEM)
-        fwd_out_spec = pl.BlockSpec((kb, 8, wb), fwd_ix, memory_space=pltpu.VMEM)
-        rev_out_spec = pl.BlockSpec((kb, 8, wb), rev_ix, memory_space=pltpu.VMEM)
-    col_spec = pl.BlockSpec((8, wb), lambda j, t: (0, j), memory_space=pltpu.VMEM)
-    smem_spec = pl.BlockSpec(memory_space=pltpu.SMEM)
-
-    if tiled:
-        ins = (
-            [scalar_inputs[n].astype(dtype).reshape(nlev, 1) for n in scal_names]
-            + [level_inputs[n] for n in names]
-            + [seed_inputs[n] for n in seed_names]
-            + [col_inputs[n].reshape(8, w) for n in col_names]
-        )
-    elif ragged:
-        ins = (
-            [scalar_inputs[n].astype(dtype).reshape(nlev, 1) for n in scal_names]
-            + [level_inputs[n].reshape(nlev, 8, w) for n in names]
-            + [seed_inputs[n].reshape(nlev, 8, w) for n in seed_names]
-            + [col_inputs[n].reshape(8, w) for n in col_names]
-        )
-    else:
-        ins = (
-            [_pad_levels(scalar_inputs[n].astype(dtype), kp).reshape(kp, 1) for n in scal_names]
-            + [_pad_levels(level_inputs[n], kp).reshape(kp, 8, w) for n in names]
-            + [_pad_levels(seed_inputs[n], kp, zero=True).reshape(kp, 8, w) for n in seed_names]
-            + [col_inputs[n].reshape(8, w) for n in col_names]
-        )
-
-    scratch = [pltpu.VMEM((ncarry_fwd + ncarry_rev, 8, wb), dtype)]
-    scratch += [pltpu.VMEM((klev, 8, wb), dtype) for _ in range(ncarry_fwd)]
-    if resident:
-        scratch += [pltpu.VMEM((klev, 8, wb), dtype) for _ in range(len(names))]
-
-    outs = pl.pallas_call(
-        kernel,
-        grid=(nj, 2 * nkb),
-        in_specs=[smem_spec] * len(scal_names)
-        + [level_spec] * len(names)
-        + [seed_spec] * len(seed_names)
-        + [col_spec] * len(col_names),
-        out_specs=[fwd_out_spec] * len(fwd_out_names)
-        + [rev_out_spec] * len(rev_out_names),
-        out_shape=[
-            jax.ShapeDtypeStruct(
-                (nj, klev, 8, wb) if tiled else (klev, 8, w), dtype
-            )
-            for _ in fwd_out_names + rev_out_names
-        ],
-        scratch_shapes=scratch,
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "arbitrary")
-        ),
-        interpret=interpret,
-    )(*ins)
-
-    all_names = fwd_out_names + rev_out_names
-    if tiled:
-        return {n: o[:, :nlev] for n, o in zip(all_names, outs)}
-    return {n: o.reshape(klev, ncols)[:nlev] for n, o in zip(all_names, outs)}
 
 
 def level_scan_pallas(
@@ -407,577 +41,86 @@ def level_scan_pallas(
     scalar_inputs: Dict[str, Array],
     out_names: Sequence[str],
     ncarry: int,
-    kb: int,
-    wb: int,
+    block_cols: int,
+    num_warps: int,
     reverse: bool = False,
     interpret: bool = False,
-    unroll: int = 1,
-    zero_pad_names: Sequence[str] = (),
-    pre_body: Callable | None = None,
-    return_padded: bool = False,
-    interleave: int = 1,
-    pre_row: Callable | None = None,
-    pack_inputs: Sequence[Sequence[str]] = (),
-    tile_layout: bool = False,
-    pre_tiled: bool = False,
-    keep_tiled: bool = False,
+    name: str = "level_scan",
 ) -> Dict[str, Array]:
-    """Run ``body`` as a Pallas level scan.
+    """Run ``body`` as a level scan on the GPU.
 
-    ``body(carry, x, col, k)`` receives the carry (tuple of ``ncarry``
-    ``(8, wb)`` arrays, zero-initialized at the top), the per-level input
-    dict ``x`` (``(8, wb)`` tiles plus the scalar inputs as 0-d values),
-    the per-column dict ``col``, and returns ``(carry, outs)`` with
-    ``outs`` keyed by ``out_names``.  Returns the stacked outputs as
-    ``(nlev, ncols)`` arrays.
+    ``body(carry, x, col, k)`` receives the carry (a tuple of ``ncarry``
+    ``(block_cols,)`` arrays, zero at the first level swept), the per-level
+    dict ``x`` (one row of every level input plus the scalar inputs as 0-d
+    values), the per-column dict ``col`` and the level index ``k``; it
+    returns ``(carry, outs)`` with ``outs`` keyed by ``out_names``.
 
-    ``pre_body(xb, col)``, if given, runs ONCE per level block before the
-    sequential loop, on the whole block: ``xb`` holds the level inputs as
-    ``(kb, 8, wb)`` tensors and the scalar inputs as ``(kb, 1, 1)``
-    columns (broadcastable against the blocks); it returns a dict of
-    ``(kb, 8, wb)`` tensors whose per-level rows are merged into ``x``
-    for ``body``.  Use it to evaluate the carry-independent part of the
-    physics as bulk tensor ops (full VPU utilization, no loop-carried
-    dependency) so only the carry-dependent tail iterates.  Keys must not
-    collide with level-input names.  On a ragged edge block the rows past
-    the last real level hold unspecified values — ``pre_body`` must be
-    elementwise along the level axis so those rows stay inert (they are
-    never read by the loop nor stored).
-
-    ``unroll >= kb`` replaces the in-block level loop with a fully static
-    Python loop (static VMEM row indices), letting Mosaic software-pipeline
-    the independent per-level computations across the sequential carry
-    chain — the VPU-latency-hiding analogue of the reference backends'
-    k-loop unrolling.  Intermediate values run a manual partial unroll
-    (``unroll`` levels per ``fori_loop`` iteration — Mosaic's ``fori_loop``
-    only supports full unroll) and must divide ``kb`` exactly.
-    (Measured on v5e: neither helps — the kernels are VPU-op-bound and
-    Mosaic already pipelines the rolled loop well.)
-
-    ``reverse=True`` sweeps levels bottom-up (the adjoint direction,
-    reference ``computation(BACKWARD)``, ``adjoint/_stencils/cloudsc2.py:
-    479-996``): the carry is zero-initialized at the *bottom* and level
-    blocks stream in reverse.
-
-    ``zero_pad_names`` marks level inputs that are cotangent *seeds*: in
-    the padded layout (``unroll > 1``) they are zero-padded instead of
-    edge-padded.  ``reverse`` with ``unroll > 1`` requires every seed input
-    to be listed here AND a body that is linear in (carry, seeds) — then
-    the padded levels (swept first, from zero carry) contribute exactly
-    zero to the carry cotangents, while their edge-padded trajectory
-    inputs keep every linearization coefficient finite.  The rolled
-    default (``unroll == 1``) is unpadded (ragged edge block), so seeds
-    pass through exactly with no conditions.
-
-    In the rolled (ragged) layout, level inputs may be TALLER than the
-    logical level count (which is the minimum height across them): a
-    producer kernel that ran padded can hand its ``(kp, ncols)`` streams
-    straight in with no slice/pad relayout — blocks beyond the logical
-    rows are fetched but never consumed (the in-block trip count clamps to
-    the valid rows), exactly like the native ragged edge block.
-
-    ``return_padded=True`` skips the final ``[:nlev]`` output slice and
-    returns the raw ``(klev, ncols)`` arrays — use when a downstream
-    ragged kernel consumes the outputs directly (the slice would
-    materialize a copy of every stream before the next ``pallas_call``).
-
-    ``interleave=N`` processes N INDEPENDENT ``(8, wb)`` column sub-tiles
-    per kernel instance, each with its own carry, their per-level bodies
-    alternated in program order (chain 0 level k, chain 1 level k,
-    chain 0 level k+1, ...).  This is NOT wb-widening: widening makes each
-    vector op longer but leaves the serial chain count unchanged, whereas
-    interleaving gives the Mosaic scheduler program-order-adjacent
-    *independent* work to issue across each chain's loop-carried
-    dependency stalls — the one ILP lever distinct from tiling (VERDICT r3
-    item 2).  The block width becomes ``interleave * wb`` (ncols must be a
-    multiple of ``8 * wb * interleave``); incompatible with ``pre_body``.
-
-    ``pack_inputs`` groups level-input names into single PACKED kernel
-    refs: each group's arrays are stacked on a new leading axis (one
-    ``(len(group), klev, 8, w)`` ref, block ``(len(group), kb, 8, wb)``),
-    so the Mosaic pipeline manages one double-buffered ref per group
-    instead of one per field — the measured binding resource (a probe
-    with 16 single-height refs vs 8 double-height refs of the SAME bytes
-    ran 1.9× slower, and every round-4 stream-count removal outperformed
-    its traffic share).  The stack itself is an XLA concat fused into the
-    producers (loop-invariant packs hoist out of chains entirely).
-    Grouped inputs must share height and dtype; names not listed stay
-    unpacked.  Incompatible with ``pre_body``/``pre_row``/``interleave>1``.
-
-    ``tile_layout=True`` stores every level stream (inputs and outputs)
-    **tile-contiguously**: ``(klev, 8, w)`` is relaid out to
-    ``(nj, klev, 8, wb)`` so one grid instance's whole stream —
-    ``klev * 8 * wb`` elements — is a single contiguous HBM extent, and
-    each level-block fetch is one contiguous ``kb*8*wb``-element burst
-    (256 KB at kb=16/wb=512/f32) instead of ``kb*8`` separate ``wb``
-    segments strided ``w`` apart (2 KB bursts, 32 KB stride at the 65k
-    benchmark shape).  This isolates the layout variable in the measured
-    large-batch throughput falloff (VERDICT r4 next #1: 28.2M cols/s at 4k
-    resident columns — where w == wb makes the global layout incidentally
-    contiguous — vs 19.5M at 65k).  The relayout transposes are XLA ops at
-    the boundary: loop-invariant input streams hoist out of a jitted step
-    chain entirely; per-step-recomputed streams fuse the transpose into
-    their producers; output de-relayouts are paid only for outputs actually
-    consumed.  The analogue of the reference's storage-layout backend axis
-    (``gt:cpu_ifirst`` vs ``gt:cpu_kfirst``, ``run_nonlinear.py:156-158``).
-    Incompatible with ``pre_body``/``pre_row``/``interleave>1``/
-    ``pack_inputs``.
-
-    ``pre_tiled=True`` (requires ``tile_layout``) declares the level
-    inputs ALREADY in tiled form ``(nj, h, 8, wb)`` — no entry relayout;
-    ``keep_tiled=True`` returns outputs in raw tiled form.  Together they
-    make tiled the pipeline's persistent storage format: a jitted step
-    chain whose state lives tiled pays zero transposes (everything outside
-    the kernel is elementwise, and XLA does not hoist per-step relayouts
-    out of a ``fori_loop`` — measured −14% for boundary-relayout-per-step
-    vs +16% raw-fetch gain, benchmarks/sweep_nl_layout.py).
-
-    ``pre_row(x, col, g) -> dict`` turns the loop into an explicit
-    one-level software pipeline: iteration *i* computes ``pre_row`` for
-    level *i+1* AND ``body`` for level *i*, with level *i*'s pre-values
-    (carried through the loop) merged into ``body``'s ``x``.  The point:
-    ``pre_row`` (the carry-independent phase A) has no dependence on
-    ``body``'s loop-carried chain, so its ops can issue during the chain's
-    latency stalls *within one loop body* — the scheduler does not need to
-    overlap across iterations (which the measured-neutral unroll/interleave
-    levers showed it barely does).  The loop recurrence then contains only
-    ``body``'s carry-to-carry chain.  Costs ``len(pre_row outputs)`` extra
-    loop-carried tensors (VMEM/registers); incompatible with ``pre_body``
-    and ``interleave>1``.
+    ``level_inputs`` are ``(nlev, ncols)``, ``col_inputs`` ``(ncols,)`` and
+    ``scalar_inputs`` ``(nlev,)``.  Returns the outputs as ``(nlev, ncols)``
+    arrays in the inputs' dtype.
     """
-    if reverse and unroll > 1 and not zero_pad_names:
-        raise ValueError(
-            "reverse=True with unroll>1 requires zero_pad_names: the padded "
-            "layout would otherwise feed edge-padded cotangent seeds into "
-            "the reverse carry"
-        )
-    if pre_body is not None and unroll < kb:
-        raise ValueError(
-            "pre_body requires unroll >= kb (fully static level loop): the "
-            "block results are vector values, which cannot be dynamically "
-            "row-indexed by a traced fori_loop counter inside Mosaic"
-        )
-    if interleave < 1:
-        raise ValueError(f"interleave={interleave} must be >= 1")
-    if interleave > 1 and pre_body is not None:
-        raise ValueError("interleave is incompatible with pre_body")
-    if pre_row is not None and (pre_body is not None or interleave > 1):
-        raise ValueError("pre_row is incompatible with pre_body/interleave")
-    if tile_layout and (
-        pre_body is not None
-        or pre_row is not None
-        or interleave > 1
-        or pack_inputs
-    ):
-        raise ValueError(
-            "tile_layout is incompatible with pre_body/pre_row/interleave/"
-            "pack_inputs"
-        )
-    if (pre_tiled or keep_tiled) and not tile_layout:
-        raise ValueError("pre_tiled/keep_tiled require tile_layout=True")
     names = tuple(level_inputs)
-    # --- stream packing metadata (see docstring) ---
-    if pack_inputs:
-        if pre_body is not None or pre_row is not None or interleave > 1:
-            raise ValueError(
-                "pack_inputs is incompatible with pre_body/pre_row/interleave"
-            )
-        groups = [tuple(g) for g in pack_inputs]
-        flat = [n for g in groups for n in g]
-        if len(set(flat)) != len(flat):
-            raise ValueError("pack_inputs groups overlap")
-        unknown = set(flat) - set(names)
-        if unknown:
-            raise ValueError(
-                f"pack_inputs names not in level_inputs: {sorted(unknown)}"
-            )
-        for g in groups:
-            hs = {level_inputs[n].shape[0] for n in g}
-            if len(hs) != 1:
-                raise ValueError(f"pack group {g} mixes heights {hs}")
-            ds = {str(level_inputs[n].dtype) for n in g}
-            if len(ds) != 1:
-                # jnp.stack on mixed dtypes would silently promote the
-                # packed stream, changing values instead of raising
-                raise ValueError(f"pack group {g} mixes dtypes {sorted(ds)}")
-        packed_set = frozenset(flat)
-        streams = [("single", n) for n in names if n not in packed_set] + [
-            ("group", i) for i in range(len(groups))
-        ]
-    else:
-        groups = []
-        streams = [("single", n) for n in names]
     col_names = tuple(col_inputs)
     scal_names = tuple(scalar_inputs)
     out_names = tuple(out_names)
-
-    sample = next(iter(level_inputs.values()))
-    lev_ax = 1 if pre_tiled else 0  # pre_tiled inputs are (nj, h, 8, wb)
-    # logical level count = the MINIMUM height: taller inputs are padded
-    # producer streams, allowed only in the rolled (ragged) layout
-    nlev = min(v.shape[lev_ax] for v in level_inputs.values())
-    ncols = (
-        sample.shape[0] * 8 * sample.shape[3] if pre_tiled else sample.shape[1]
-    )
+    sample = level_inputs[names[0]]
+    nlev, ncols = sample.shape
     dtype = sample.dtype
-    if unroll > 1 and any(
-        v.shape[lev_ax] != nlev for v in level_inputs.values()
-    ):
-        raise ValueError(
-            "mixed level-input heights require the rolled (unroll=1) layout"
-        )
-    if dtype == jnp.float64:
-        raise ValueError(
-            "Pallas kernels require single precision (TPU Mosaic has no f64); "
-            "use the lax.scan implementation (the f64 oracle) instead"
-        )
-    wbt = wb * interleave  # physical block width: `interleave` chains of wb
-    if ncols % (8 * wbt) != 0:
-        raise ValueError(f"ncols={ncols} must be a multiple of {8 * wbt}")
-    w = ncols // 8
-    nj = w // wbt
-    kp = math.ceil(nlev / kb) * kb
-    nkb = kp // kb
-    u = max(min(unroll, kb), 1)
-    # Default (rolled) path: NO level padding.  137 levels is prime, so any
-    # kb > 1 needs a ragged edge block; padding instead would copy every
-    # input and output array per call (~1.2 GB of HBM traffic per step at
-    # the benchmark shape).  Pallas handles the partial edge block natively
-    # (out-of-bounds rows are neither read by the loop nor stored back);
-    # the in-kernel trip count is clamped to the valid rows.  The unroll>1
-    # experimental variants need static trip counts, so they keep the
-    # padded layout.
-    ragged = u == 1
-    klev = nlev if ragged else kp
+    for n, v in level_inputs.items():
+        if v.shape != (nlev, ncols) or v.dtype != dtype:
+            raise ValueError(
+                f"level input {n!r} is {v.shape} {v.dtype}; expected "
+                f"{(nlev, ncols)} {dtype}"
+            )
+    if block_cols < 1 or block_cols & (block_cols - 1):
+        raise ValueError(f"block_cols={block_cols} must be a power of two")
+    nblk = pl.cdiv(ncols, block_cols)
+    n_s, n_l, n_c = len(scal_names), len(names), len(col_names)
 
     def kernel(*refs):
-        n_s, n_l, n_c, n_o = (
-            len(scal_names), len(streams), len(col_names), len(out_names),
-        )
         scal_refs = refs[:n_s]
         level_refs = refs[n_s : n_s + n_l]
         col_refs = refs[n_s + n_l : n_s + n_l + n_c]
-        out_refs = refs[n_s + n_l + n_c : n_s + n_l + n_c + n_o]
-        carry_ref = refs[-1]
+        out_refs = refs[n_s + n_l + n_c :]
+        c0 = pl.program_id(0) * block_cols
+        cols = pl.ds(c0, block_cols)
+        # columns past ncols (the last block only) load 1.0, which keeps
+        # the physics on those lanes finite; they are never stored
+        mask = c0 + jnp.arange(block_cols, dtype=jnp.int32) < ncols
+        col = {
+            n: plgpu.load(r.at[cols], mask=mask, other=1)
+            for n, r in zip(col_names, col_refs)
+        }
 
-        def read_level_row(row):
-            x = {}
-            for (kind, key), r in zip(streams, level_refs):
-                if kind == "single":
-                    x[key] = r[0, row] if tile_layout else r[row]
-                else:
-                    for si, nm in enumerate(groups[key]):
-                        x[nm] = r[si, row]
-            return x
-
-        kb_id = pl.program_id(1)
-
-        @pl.when(kb_id == 0)
-        def _init():
-            carry_ref[...] = jnp.zeros_like(carry_ref)
-
-        col = {n: r[...] for n, r in zip(col_names, col_refs)}
-        # block index in array space (the index_map already reverses blocks)
-        ar_kb = (nkb - 1 - kb_id) if reverse else kb_id
-        # rows of this block that exist in the (possibly ragged) array
-        valid = jnp.minimum(kb, nlev - ar_kb * kb) if ragged else kb
-
-        if pre_body is not None:
-            xb = {n: r[...] for n, r in zip(names, level_refs)}
+        def step(i, carry):
+            k = nlev - 1 - i if reverse else i
+            x = {
+                n: plgpu.load(r.at[k, cols], mask=mask, other=1)
+                for n, r in zip(names, level_refs)
+            }
             for n, r in zip(scal_names, scal_refs):
-                # (kb, 8, wb) broadcast of the block's per-level scalars —
-                # Mosaic has no tiny-vector shapes ((kb,1,1) reshape is an
-                # unsupported shape cast), so splat each SMEM scalar to a
-                # full row; clamped reads keep the ragged edge block in
-                # bounds (the extra rows are never consumed)
-                xb[n] = jnp.concatenate(
-                    [
-                        jnp.full((1, 8, wb), r[jnp.minimum(ar_kb * kb + i, nlev - 1), 0], dtype=dtype)
-                        for i in range(kb)
-                    ],
-                    axis=0,
-                )
-            preb = pre_body(xb, col)
-            clash = set(preb) & set(names)
-            if clash:
-                raise ValueError(f"pre_body keys shadow level inputs: {sorted(clash)}")
-        else:
-            preb = {}
-
-        if interleave == 1:
-            cols_by_chain = [col]
-        else:
-            cols_by_chain = [
-                {n: v[:, ci * wb:(ci + 1) * wb] for n, v in col.items()}
-                for ci in range(interleave)
-            ]
-
-        def step_at(row, carry, ci=0):
-            g = ar_kb * kb + row
-            if interleave == 1:
-                x = read_level_row(row)
-            else:
-                x = {
-                    n: r[row, :, ci * wb:(ci + 1) * wb]
-                    for n, r in zip(names, level_refs)
-                }
-            for n, r in zip(scal_names, scal_refs):
-                x[n] = r[g, 0]
-            for n, v in preb.items():
-                x[n] = v[row]
-            carry, outs = body(carry, x, cols_by_chain[ci], g)
+                x[n] = r[k]
+            carry, outs = body(carry, x, col, k)
             for n, r in zip(out_names, out_refs):
-                if interleave == 1:
-                    if tile_layout:
-                        r[0, row] = outs[n]
-                    else:
-                        r[row] = outs[n]
-                else:
-                    r[row, :, ci * wb:(ci + 1) * wb] = outs[n]
-            return carry
+                plgpu.store(r.at[k, cols], outs[n].astype(dtype), mask=mask)
+            return tuple(carry)
 
-        if pre_row is not None:
-            # explicit one-level software pipeline: iteration i computes
-            # phase A (pre_row) of level i+1 and phase B (body) of level i;
-            # phase A has no dependence on the loop-carried chain, so its
-            # ops fill B's latency stalls within ONE loop body — no
-            # cross-iteration scheduling needed
-            def x_at(row, g):
-                x = {n: r[row] for n, r in zip(names, level_refs)}
-                for n, r in zip(scal_names, scal_refs):
-                    x[n] = r[g, 0]
-                return x
-
-            def pre_at(row):
-                g = ar_kb * kb + row
-                return pre_row(x_at(row, g), col, g)
-
-            def body_at(row, carry, pre):
-                g = ar_kb * kb + row
-                x = x_at(row, g)
-                x.update(pre)
-                carry, outs = body(carry, x, col, g)
-                for n, r in zip(out_names, out_refs):
-                    r[row] = outs[n]
-                return carry
-
-            carry = tuple(carry_ref[j] for j in range(ncarry))
-            if u >= kb:
-                rows = [(kb - 1 - i) if reverse else i for i in range(kb)]
-                pre = pre_at(rows[0])
-                for idx, row in enumerate(rows):
-                    nxt = pre_at(rows[idx + 1]) if idx + 1 < kb else pre
-                    carry = body_at(row, carry, pre)
-                    pre = nxt
-            else:
-                if u > 1:
-                    raise ValueError("pre_row requires unroll == 1 or >= kb")
-                first = (valid - 1) if reverse else 0
-
-                def stepp(i, st):
-                    carry, pre = st
-                    row = (valid - 1 - i) if reverse else i
-                    ni = jnp.minimum(i + 1, valid - 1)
-                    nrow = (valid - 1 - ni) if reverse else ni
-                    nxt = pre_at(nrow)
-                    carry = body_at(row, carry, pre)
-                    return (carry, nxt)
-
-                carry, _ = jax.lax.fori_loop(
-                    0, valid, stepp, (carry, pre_at(first))
-                )
-            for j in range(ncarry):
-                carry_ref[j] = carry[j]
-            return
-
-        # one independent carry per interleaved chain (chain ci owns scratch
-        # rows ci*ncarry .. (ci+1)*ncarry); per level, the chains' bodies sit
-        # adjacent in program order so Mosaic can issue one chain's
-        # independent ops across another's carry-dependency stalls
-        chains = tuple(
-            tuple(carry_ref[ci * ncarry + j] for j in range(ncarry))
-            for ci in range(interleave)
+        zero = jnp.zeros((block_cols,), dtype)
+        # int32 bounds: the index arithmetic stays int32 under jax_enable_x64
+        jax.lax.fori_loop(
+            jnp.int32(0), jnp.int32(nlev), step, (zero,) * ncarry
         )
 
-        def substep(row, chains):
-            return tuple(
-                step_at(row, chains[ci], ci) for ci in range(interleave)
-            )
-
-        if u >= kb:
-            for i in range(kb):
-                chains = substep((kb - 1 - i) if reverse else i, chains)
-        elif u > 1:
-            # manual partial unroll: Mosaic's fori_loop only supports full
-            # unroll, so widen the loop body by hand — u levels per
-            # iteration gives the scheduler a u-times-larger block of
-            # mostly carry-independent work to pipeline
-            if kb % u != 0:
-                raise ValueError(f"unroll={u} must divide kb={kb}")
-
-            def block(b, chains):
-                for j in range(u):
-                    i = b * u + j
-                    chains = substep((kb - 1 - i) if reverse else i, chains)
-                return chains
-
-            chains = jax.lax.fori_loop(0, kb // u, block, chains)
-        else:
-            # rolled default: iterate only the valid rows (top-down:
-            # 0..valid-1; bottom-up: valid-1..0 — the ragged rows sit at
-            # the high end of the edge block in both directions)
-            chains = jax.lax.fori_loop(
-                0,
-                valid,
-                lambda i, cs: substep((valid - 1 - i) if reverse else i, cs),
-                chains,
-            )
-        for ci in range(interleave):
-            for j in range(ncarry):
-                carry_ref[ci * ncarry + j] = chains[ci][j]
-
-    if tile_layout:
-        # tile-contiguous: array (nj, klev, 8, wb); one grid instance's
-        # whole stream is a single contiguous HBM extent, each block fetch
-        # one contiguous burst
-        if reverse:
-            level_spec = pl.BlockSpec(
-                (1, kb, 8, wb), lambda j, k: (j, nkb - 1 - k, 0, 0),
-                memory_space=pltpu.VMEM,
-            )
-        else:
-            level_spec = pl.BlockSpec(
-                (1, kb, 8, wb), lambda j, k: (j, k, 0, 0),
-                memory_space=pltpu.VMEM,
-            )
-    elif reverse:
-        level_spec = pl.BlockSpec(
-            (kb, 8, wbt), lambda j, k: (nkb - 1 - k, 0, j), memory_space=pltpu.VMEM
-        )
-    else:
-        level_spec = pl.BlockSpec(
-            (kb, 8, wbt), lambda j, k: (k, 0, j), memory_space=pltpu.VMEM
-        )
-
-    def _stream_spec(kind, key):
-        if kind == "single":
-            return level_spec
-        glen = len(groups[key])
-        if reverse:
-            return pl.BlockSpec(
-                (glen, kb, 8, wbt), lambda j, k: (0, nkb - 1 - k, 0, j),
-                memory_space=pltpu.VMEM,
-            )
-        return pl.BlockSpec(
-            (glen, kb, 8, wbt), lambda j, k: (0, k, 0, j),
-            memory_space=pltpu.VMEM,
-        )
-
-    col_spec = pl.BlockSpec((8, wbt), lambda j, k: (0, j), memory_space=pltpu.VMEM)
-    smem_spec = pl.BlockSpec(memory_space=pltpu.SMEM)
-
-    def _tile(v3):
-        """(h, 8, w) -> (nj, h, 8, wb) tile-contiguous relayout (XLA
-        transpose; loop-invariant streams hoist out of jitted chains)."""
-        h = v3.shape[0]
-        return v3.reshape(h, 8, nj, wb).transpose(2, 0, 1, 3)
-
-    def _check_tiled(v, key):
-        if v.ndim != 4 or v.shape[0] != nj or v.shape[2:] != (8, wb):
-            raise ValueError(
-                f"pre_tiled input {key!r} has shape {v.shape}; expected "
-                f"({nj}, h, 8, {wb})"
-            )
-        return v
-
-    if ragged:
-        def stream_arr(kind, key):
-            if kind == "single":
-                # per-input heights: a taller (padded producer) stream
-                # passes through unsliced; blocks past the logical rows are
-                # fetched but never consumed (trip count clamps)
-                v = level_inputs[key]
-                if pre_tiled:
-                    return _check_tiled(v, key)
-                v3 = v.reshape(v.shape[0], 8, w)
-                return _tile(v3) if tile_layout else v3
-            g = groups[key]
-            h = level_inputs[g[0]].shape[0]
-            return jnp.stack([level_inputs[n] for n in g]).reshape(
-                len(g), h, 8, w
-            )
-
-        ins = (
-            [scalar_inputs[n].astype(dtype).reshape(nlev, 1) for n in scal_names]
-            + [stream_arr(*s) for s in streams]
-            + [col_inputs[n].reshape(8, w) for n in col_names]
-        )
-    else:
-        zset = frozenset(zero_pad_names)
-        unknown = zset - set(names)
-        if unknown:
-            raise ValueError(f"zero_pad_names not in level_inputs: {sorted(unknown)}")
-
-        def stream_arr(kind, key):
-            if kind == "single":
-                if pre_tiled:
-                    v = _check_tiled(level_inputs[key], key)
-                    pad = kp - v.shape[1]
-                    if pad:
-                        spec = ((0, 0), (0, pad), (0, 0), (0, 0))
-                        v = (
-                            jnp.pad(v, spec)
-                            if key in zset
-                            else jnp.pad(v, spec, mode="edge")
-                        )
-                    return v
-                v3 = _pad_levels(
-                    level_inputs[key], kp, zero=key in zset
-                ).reshape(kp, 8, w)
-                return _tile(v3) if tile_layout else v3
-            g = groups[key]
-            return jnp.stack(
-                [_pad_levels(level_inputs[n], kp, zero=n in zset) for n in g]
-            ).reshape(len(g), kp, 8, w)
-
-        ins = (
-            [_pad_levels(scalar_inputs[n].astype(dtype), kp).reshape(kp, 1) for n in scal_names]
-            + [stream_arr(*s) for s in streams]
-            + [col_inputs[n].reshape(8, w) for n in col_names]
-        )
     outs = pl.pallas_call(
         kernel,
-        grid=(nj, nkb),
-        in_specs=[smem_spec] * len(scal_names)
-        + [_stream_spec(*s) for s in streams]
-        + [col_spec] * len(col_names),
-        out_specs=[level_spec] * len(out_names),
-        out_shape=[
-            jax.ShapeDtypeStruct(
-                (nj, klev, 8, wb) if tile_layout else (klev, 8, w), dtype
-            )
-            for _ in out_names
-        ],
-        scratch_shapes=[pltpu.VMEM((ncarry * interleave, 8, wb), dtype)],
-        # column tiles are independent (carry re-zeroed at each tile's first
-        # level block); only the level axis must run sequentially
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "arbitrary")
-        ),
+        grid=(nblk,),
+        out_shape=[jax.ShapeDtypeStruct((nlev, ncols), dtype) for _ in out_names],
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps, num_stages=1),
         interpret=interpret,
-    )(*ins)
-
-    if tile_layout:
-        if keep_tiled:
-            if return_padded:
-                return dict(zip(out_names, outs))
-            return {n: o[:, :nlev] for n, o in zip(out_names, outs)}
-        # inverse relayout (nj, klev, 8, wb) -> (klev, ncols); outputs not
-        # consumed downstream are DCE'd, so only live streams pay it
-        outs = [o.transpose(1, 2, 0, 3).reshape(klev, ncols) for o in outs]
-        if return_padded:
-            return dict(zip(out_names, outs))
-        return {n: o[:nlev] for n, o in zip(out_names, outs)}
-    if return_padded:
-        return {n: o.reshape(klev, ncols) for n, o in zip(out_names, outs)}
-    return {n: o.reshape(klev, ncols)[:nlev] for n, o in zip(out_names, outs)}
+        name=name,
+    )(
+        *[scalar_inputs[n].astype(dtype) for n in scal_names],
+        *[level_inputs[n] for n in names],
+        *[col_inputs[n].astype(dtype) for n in col_names],
+    )
+    return dict(zip(out_names, outs))

@@ -1,19 +1,17 @@
-
 # Copyright 2026.
 # Licensed under the Apache License, Version 2.0.
-"""Pallas TPU kernel for the nonlinear CLOUDSC2 scheme.
+"""GPU kernel for the nonlinear CLOUDSC2 scheme.
 
-The TPU-native realization of the reference ``cloudsc2_nl`` stencil
-(``physics/nonlinear/_stencils/cloudsc2.py:24-399``), built on the generic
-level-scan harness (:mod:`cloudsc2_tpu.pallas.levelscan`) and sharing its
-per-level physics with the ``lax.scan`` path
-(:func:`cloudsc2_tpu.physics.nonlinear.nl_level` runs *inside* the
-kernel), so the two implementations cannot drift.
+The reference ``cloudsc2_nl`` stencil
+(``physics/nonlinear/_stencils/cloudsc2.py:24-399``) on the level-scan
+kernel (:mod:`cloudsc2_tpu.pallas.levelscan`); the per-level physics is
+:func:`cloudsc2_tpu.physics.nonlinear.nl_level`, shared with the
+``lax.scan`` path, so the two implementations cannot drift.
 
 The tropopause search (a cross-level reduction needed *before* level 0's
 cloud-cover computation, reference ``cloudsc2.py:106-111``) cannot live in
-the top-down kernel sweep; it is fused with the first-guess temperature
-pre-pass in plain jnp (XLA fuses these into one cheap pass).
+the top-down sweep; it runs in plain jnp ahead of the kernel, fused by XLA
+with the first-guess temperature.
 """
 from __future__ import annotations
 
@@ -29,48 +27,78 @@ from cloudsc2_tpu.physics.nonlinear import (
     NLCarry,
     critical_rh_coeffs,
     nl_level,
-    nl_level_post,
-    nl_level_pre,
     scalm_profile,
-    tiled_stream_geometry,
     tropopause_eta,
-    tropopause_eta_tiled,
 )
 
 Array = jnp.ndarray
 
-#: level-block height and lane width of one column tile (columns per tile
-#: = 8 * WB); KB=16, WB=512 fits 26 double-buffered blocks in VMEM
-KB = 16
-WB = 512
-#: two levels per loop iteration (manual partial unroll, padded layout).
-#: Measured on v5e with the strength-reduced body (benchmarks/sweep_nl.py):
-#: unroll=2 beats the rolled ragged loop 15.9M vs 14.6M cols/s — the wider
-#: loop body gives Mosaic a block of mostly carry-independent work to
-#: software-pipeline; unroll=8 adds nothing further.  (Round 1 measured
-#: unroll as neutral; the divide strength reduction changed the balance.)
-UNROLL = 2
-#: tiled-native storage defaults (round 5, sweep_nl_tiled.py, 3 processes):
-#: ROLLED kb=28 wins — 29.07-29.13M cols/s at 65k columns vs 28.2-28.3M at
-#: kb=16 and 21.3M at the global-layout default's unroll=2 (whose padded
-#: layout re-pads every tiled stream per call).  Rolled kb=14-28 all
-#: compile under the tiled layout (global crashed Mosaic at rolled kb>=14);
-#: kb=36/48 still crash.  wb fixed by the tiled state (512 measured best).
-TILED_KB = 28
+#: columns per block and warps per block, chosen on the card by
+#: ``benchmarks/kernel_vs_scan.py`` (CHANGES.md, PR 1)
+BLOCK_COLS = 256
+NUM_WARPS = 4
 
 LEVEL_OUTPUTS = (
-    "tnd_t", "tnd_q", "tnd_ql", "tnd_qi", "clc", "covptot",
-    "fplsl", "fplsn",
+    "tnd_t", "tnd_q", "tnd_ql", "tnd_qi", "clc", "covptot", "fplsl", "fplsn",
 )
+
+
+def check_kernel_dtype(state: Dict[str, Array]) -> None:
+    """The kernels run in single precision; the ``lax.scan`` paths are the
+    f64 implementation."""
+    if state["ap"].dtype != jnp.float32:
+        raise ValueError(
+            f"the GPU kernels take float32 fields (got {state['ap'].dtype}); "
+            "use impl='scan' for double precision"
+        )
+
+
+def kernel_inputs(state: Dict[str, Array], dt: float, c: Constants):
+    """Level, column and scalar inputs shared by the NL kernel and the
+    adjoint's reverse kernel.
+
+    The interface pressures enter the scheme only as their difference
+    ``dp``, the mass fluxes only as their sum ``mf``, and the species,
+    accumulated tendencies and ``supsat`` only through the first-guess
+    combines (``nl_level_pre`` accepts all of these), so each is one
+    stream instead of several."""
+    dtype = state["ap"].dtype
+    eta = state["eta"].astype(dtype)
+    t_fg = state["t"] + dt * state["tnd_cml_t"]
+    lu = state["lu"]
+    trpaus = tropopause_eta(eta, t_fg)
+    level = {
+        "ap": state["ap"],
+        "dp": state["aph"][1:] - state["aph"][:-1],
+        "lu_next": jnp.concatenate([lu[1:], jnp.zeros_like(lu[:1])], axis=0),
+        "lude": state["lude"],
+        "mf": state["mfu"] + state["mfd"],
+        "q2": state["q"] + dt * state["tnd_cml_q"] + state["supsat"],
+        "ql_fg": state["ql"] + dt * state["tnd_cml_ql"],
+        "qi_fg": state["qi"] + dt * state["tnd_cml_qi"],
+        "qsat": state["qsat"],
+        "t_fg": t_fg,
+    }
+    col = dict(
+        zip(("crh_rh2", "crh_deta1", "crh_rsq"), critical_rh_coeffs(trpaus)),
+        trpaus=trpaus,
+        aph_s=state["aph"][-1],
+    )
+    return level, col, {"eta": eta, "scalm": scalm_profile(eta, c)}
+
+
+def with_crh(x: Dict[str, Array], col: Dict[str, Array]) -> Dict[str, Array]:
+    """``x`` with the hoisted per-column critical-humidity coefficients."""
+    return dict(
+        x, crh_rh2=col["crh_rh2"], crh_deta1=col["crh_deta1"],
+        crh_rsq=col["crh_rsq"],
+    )
 
 
 @partial(
     jax.jit,
     static_argnames=(
-        "dt", "c", "interpret", "with_trajectory", "kb", "wb", "unroll",
-        "fuse_saturation", "kflag", "split", "xla_pre", "padded_traj",
-        "interleave", "pipeline", "elide_covptot", "pack", "tile_layout",
-        "state_tiled", "traj_only",
+        "dt", "c", "interpret", "with_trajectory", "block_cols", "num_warps",
     ),
 )
 def cloudsc2_nl_pallas(
@@ -79,410 +107,66 @@ def cloudsc2_nl_pallas(
     c: Constants,
     interpret: bool = False,
     with_trajectory: bool = False,
-    kb: int | None = None,
-    wb: int | None = None,
-    unroll: int | None = None,
-    fuse_saturation: bool = False,
-    kflag: int = 1,
-    split: bool = False,
-    xla_pre: bool = False,
-    padded_traj: bool = False,
-    interleave: int = 1,
-    pipeline: bool = False,
-    elide_covptot: bool | None = None,
-    pack: bool = False,
-    tile_layout: bool = False,
-    state_tiled: bool = False,
-    traj_only: bool = False,
+    block_cols: int = BLOCK_COLS,
+    num_warps: int = NUM_WARPS,
 ) -> Tuple[Dict[str, Array], ...]:
     """Drop-in replacement for :func:`cloudsc2_tpu.physics.nonlinear.
-    cloudsc2_nl` backed by the Pallas kernel.
+    cloudsc2_nl` backed by the GPU kernel (float32, any column count).
 
-    Requires ``ncols`` to be a multiple of ``8 * WB`` (4096); use
-    :func:`cloudsc2_tpu.parallel.mesh.pad_columns` otherwise.  float32 only
-    (TPU Mosaic has no f64); the ``lax.scan`` path remains the f64 oracle.
-
-    ``fuse_saturation=True`` computes ``qsat`` (the Saturation component,
-    reference ``saturation.py:23-42``) and the first-guess temperature
-    *inside* the kernel instead of reading them from HBM — the single-kernel
-    hot path for the reference's saturation+NL loop
-    (``run_nonlinear.py:115-119``); ``qsat`` is then returned as an extra
-    diagnostic.  ``state["qsat"]``/precomputed ``t_fg`` are not read.
-
-    ``tile_layout=True`` relays every level stream out tile-contiguously
-    (levelscan ``tile_layout``): each grid instance's stream becomes one
-    contiguous HBM extent, isolating the strided-fetch variable in the
-    measured large-batch falloff (28.2M cols/s at 4k resident columns vs
-    19.5M at 65k; the 4k shape is incidentally contiguous because w == wb).
-    Per-column computation is identical — outputs are bitwise equal.
-
-    ``xla_pre=True`` evaluates the whole carry-independent phase A
-    (:func:`nl_level_pre`) as one fused XLA pass over the full
-    ``(nlev, ncols)`` arrays — level-parallel, full VPU utilization — and
-    runs only the carry-dependent tail (:func:`nl_level_post`) in the
-    kernel.  Only the exp/divide-expensive phase-A values stream through
-    HBM; cheap ones are recomputed bit-identically inside the tail (see
-    ``nl_level_post``).  This trades ~25 extra HBM streams for removing
-    ~60% of the kernel's serial-loop ops — the measured win on the
-    op-throughput-bound v5e kernel.  Incompatible with ``fuse_saturation``
-    and ``split``.
+    ``with_trajectory=True`` also returns the carry *entering* each level
+    (``c_rfl``, ``c_sfl`` and, with the evaporation branch on, ``c_cov``):
+    the trajectory the adjoint's reverse sweep re-linearizes around.
     """
-    if xla_pre and (fuse_saturation or split):
-        raise ValueError("xla_pre is incompatible with fuse_saturation/split")
-    if state_tiled:
-        # tiled-native storage: 2-D fields arrive as (nj, L, 8, wb) — see
-        # levelscan pre_tiled/keep_tiled.  Everything here is elementwise
-        # or level-axis-local, so no relayout exists anywhere in the call.
-        if not tile_layout:
-            raise ValueError("state_tiled requires tile_layout=True")
-        if padded_traj:
-            raise ValueError(
-                "state_tiled trajectories flow tiled (keep_tiled); "
-                "padded_traj does not apply"
-            )
-        if xla_pre or split or pipeline or pack or interleave != 1:
-            # checked here because the xla_pre path runs before the
-            # tile_layout compatibility guards below
-            raise ValueError(
-                "state_tiled is incompatible with "
-                "xla_pre/split/pipeline/pack/interleave"
-            )
-        from cloudsc2_tpu.pallas.levelscan import _check_tiled_state
-
-        nj_t, nlev, wb, ncols = _check_tiled_state(state["ap"], wb)
-    else:
-        nlev, ncols = state["ap"].shape
+    check_kernel_dtype(state)
+    ncols = state["ap"].shape[1]
     dtype = state["ap"].dtype
+    level, col_inputs, scalars = kernel_inputs(state, dt, c)
+    evap = bool(c.LEVAPLS2 or c.LDRAIN1D)
 
-    eta = state["eta"].astype(dtype)
-    scalm = scalm_profile(eta, c)
-    t_fg = state["t"] + dt * state["tnd_cml_t"]
-    lu = state["lu"]
-    if state_tiled:
-        dp, aph_s, lu_next = tiled_stream_geometry(state["aph"], lu)
-        trpaus = tropopause_eta_tiled(eta, t_fg)
-    else:
-        dp = state["aph"][1:] - state["aph"][:-1]
-        aph_s = state["aph"][-1]
-        lu_next = jnp.concatenate([lu[1:], jnp.zeros_like(lu[:1])], axis=0)
-        trpaus = tropopause_eta(eta, t_fg)
-
-    level_inputs = {
-        "ap": state["ap"],
-        # the scheme reads the interface pressures only as their difference
-        # (nl_level_pre): one dp stream instead of two aph slice copies
-        "dp": dp,
-        "lu_next": lu_next,
-        "lude": state["lude"],
-        # mass fluxes enter the scheme only as their sum (nl_level_pre):
-        # one mf stream instead of two
-        "mf": state["mfu"] + state["mfd"],
-        # first-guess combines precomputed in XLA (nl_level_pre accepts
-        # them): 3 streams instead of the 7 raw fields
-        "q2": state["q"] + dt * state["tnd_cml_q"] + state["supsat"],
-        "ql_fg": state["ql"] + dt * state["tnd_cml_ql"],
-        "qi_fg": state["qi"] + dt * state["tnd_cml_qi"],
-    }
-    if fuse_saturation:
-        level_inputs["t"] = state["t"]
-        level_inputs["tnd_cml_t"] = state["tnd_cml_t"]
-    else:
-        level_inputs["qsat"] = state["qsat"]
-        level_inputs["t_fg"] = t_fg
-
-    def _add_sat(x):
-        if fuse_saturation:
-            from cloudsc2_tpu.physics.saturation import saturation
-
-            # NOTE: measured-negative optimization (v5e): sharing 1/ap
-            # between this call (rap=...) and nl_level gains nothing (the
-            # kernel is not divide-bound) and makes the fused path diverge
-            # from the unfused one by an amplified ulp near cloud-regime
-            # boundaries — keep the saturation division bit-identical.
-            x["qsat"] = saturation(
-                x["ap"], x["t"], kflag=kflag, lphylin=c.LPHYLIN, c=c
-            )
-            x["t_fg"] = x["t"] + dt * x["tnd_cml_t"]
-        return x
-
-    def _finish(outs, x, carry_in):
-        # fhpsl/fhpsn are pure scalings of fplsl/fplsn — computed in XLA at
-        # assembly instead of burning two kernel output streams (72 MB of
-        # HBM writes per step at the benchmark shape)
-        if fuse_saturation:
-            outs["qsat"] = x["qsat"]
-        if with_trajectory:
-            # carry *entering* the level: the trajectory the adjoint's
-            # reverse sweep re-linearizes around (the reference AD instead
-            # materializes ~35 forward temporaries,
-            # adjoint/_stencils/cloudsc2.py:133-476).  c_cov elision
-            # invariant: with the evaporation branch off, the TL/AD never
-            # READ the covptot carry (covpclr/covpclr_i are consumed only
-            # inside the LEVAPLS2/LDRAIN1D branch, so the zero-substituted
-            # carry only flips dead predicates).  The carry itself is NOT
-            # zero — nl_level_post still maintains the running
-            # max(covptot_in, clc) — so any change that reads covpclr
-            # outside the evap branch must also un-elide c_cov here.
-            outs["c_rfl"], outs["c_sfl"], outs["c_cov"] = carry_in
-        return outs
-
-    def body(carry, x, col, _g):
+    def body(carry, x, col, _k):
         carry_in = carry
-        x = _add_sat(dict(x, crh_rh2=col["crh_rh2"], crh_deta1=col["crh_deta1"],
-                          crh_rsq=col["crh_rsq"]))
         carry, outs, _aux = nl_level(
-            NLCarry(*carry), x, col["aph_s"], col["trpaus"], dt, c
+            NLCarry(*carry), with_crh(x, col), col["aph_s"], col["trpaus"],
+            dt, c,
         )
-        return tuple(carry), _finish(outs, x, carry_in)
+        if with_trajectory:
+            outs["c_rfl"], outs["c_sfl"], outs["c_cov"] = carry_in
+        return tuple(carry), outs
 
-    #: phase-A values carried one level ahead in pipeline mode — the same
-    #: selection as the xla_pre tail streams (exp/divide-expensive values;
-    #: cheap ones recomputed bit-identically in nl_level_post) plus the
-    #: two phase-A-determined outputs (tnd_ql, clc)
-    PIPE_KEYS = (
-        "tnd_ql", "clc", "qiwc1", "prr", "cldi", "condl1", "condi1", "z2s",
-        "gdp",
+    # with the evaporation branch compiled out the covptot output is
+    # identically zero and the TL/AD never read the covptot carry (it is
+    # consumed only inside that branch), so neither stream is written
+    out_names = LEVEL_OUTPUTS if evap else tuple(
+        n for n in LEVEL_OUTPUTS if n != "covptot"
     )
-
-    def pre_row_fn(x, col, _g):
-        x2 = _add_sat(dict(x, crh_rh2=col["crh_rh2"], crh_deta1=col["crh_deta1"],
-                           crh_rsq=col["crh_rsq"]))
-        pre = nl_level_pre(x2, col["aph_s"], col["trpaus"], dt, c)
-        sel = {k: pre[k] for k in PIPE_KEYS}
-        if c.FAST_DIV != "exact":
-            sel["rap"] = pre["rap"]
-        if c.LEVAPLS2 or c.LDRAIN1D:
-            sel.update(corqs=pre["corqs"], sqr=pre["sqr"], dtgdp=pre["dtgdp"])
-        return sel
-
-    def pipe_body(carry, x, col, _g):
-        carry_in = carry
-        x = dict(x)
-        x["t2"] = x["t_fg"]
-        carry, outs, _aux = nl_level_post(NLCarry(*carry), x, dt, c)
-        return tuple(carry), _finish(outs, x, carry_in)
-
-    def pre_block(xb, col):
-        """Phase A on a whole (kb, 8, wb) level block — bulk tensor ops."""
-        xb = _add_sat(dict(xb, crh_rh2=col["crh_rh2"], crh_deta1=col["crh_deta1"],
-                           crh_rsq=col["crh_rsq"]))
-        pre = nl_level_pre(xb, col["aph_s"], col["trpaus"], dt, c)
-        if fuse_saturation:
-            pre["qsat_blk"] = xb["qsat"]
-        # drop pure passthroughs of level inputs (e.g. dp): same value,
-        # and the harness rejects shadowing
-        return {k: v for k, v in pre.items() if k not in xb}
-
-    def post_body(carry, x, col, _g):
-        carry_in = carry
-        if fuse_saturation:
-            x = dict(x, qsat=x["qsat_blk"])
-        carry, outs, _aux = nl_level_post(NLCarry(*carry), x, dt, c)
-        return tuple(carry), _finish(outs, x, carry_in)
-
-    kb_ = (TILED_KB if state_tiled else KB) if kb is None else kb
-    if state_tiled and unroll is None:
-        unroll = 1  # rolled is the natural partner of tiled storage
-    if xla_pre:
-        # ---- phase A: one fused XLA pass over the full (nlev, ncols) grid
-        xfull = dict(level_inputs)
-        xfull["eta"] = eta[:, None]
-        xfull["scalm"] = scalm[:, None]
-        rh2, deta1, rsq = critical_rh_coeffs(trpaus)
-        xfull.update(crh_rh2=rh2, crh_deta1=deta1, crh_rsq=rsq)
-        pre = nl_level_pre(xfull, state["aph"][-1], trpaus, dt, c)
-
-        # ---- the tail kernel's minimal stream set: raw inputs it reads
-        # directly plus the exp/divide-expensive phase-A values (cheap ones
-        # are recomputed bit-identically inside nl_level_post)
-        tail_inputs = {
-            "ap": state["ap"],
-            "lude": state["lude"],
-            "t2": t_fg,
-            "q2": pre["q2"],
-            "qi_fg": pre["qi_fg"],
-            "clc": pre["clc"],
-            "qiwc1": pre["qiwc1"],
-            "prr": pre["prr"],
-            "cldi": pre["cldi"],
-            "condl1": pre["condl1"],
-            "condi1": pre["condi1"],
-            "z2s": pre["z2s"],
-            "dp": pre["dp"],
-            "gdp": pre["gdp"],
-        }
-        if c.FAST_DIV != "exact":
-            tail_inputs["rap"] = pre["rap"]
-        if c.LEVAPLS2 or c.LDRAIN1D:
-            tail_inputs.update(
-                qsat=state["qsat"], corqs=pre["corqs"], sqr=pre["sqr"],
-                dtgdp=pre["dtgdp"],
-            )
-
-        def tail_body(carry, x, col, _g):
-            carry_in = carry
-            carry, outs, _aux = nl_level_post(NLCarry(*carry), x, dt, c)
-            if with_trajectory:
-                outs["c_rfl"], outs["c_sfl"], outs["c_cov"] = carry_in
-            return tuple(carry), outs
-
-        tail_outs = ("tnd_t", "tnd_q", "tnd_qi", "covptot", "fplsl", "fplsn")
-        if with_trajectory:
-            tail_outs = tail_outs + ("c_rfl", "c_sfl", "c_cov")
-        named = level_scan_pallas(
-            tail_body,
-            level_inputs=tail_inputs,
-            col_inputs={},
-            scalar_inputs={},
-            out_names=tail_outs,
-            ncarry=3,
-            kb=kb_,
-            wb=WB if wb is None else wb,
-            unroll=UNROLL if unroll is None else unroll,
-            interpret=interpret,
-        )
-
-        zrow = jnp.zeros((1, ncols), dtype)
-        fplsl = jnp.concatenate([zrow, named["fplsl"]], axis=0)
-        fplsn = jnp.concatenate([zrow, named["fplsn"]], axis=0)
-        tends = {
-            "t": named["tnd_t"],
-            "q": named["tnd_q"],
-            "ql": pre["tnd_ql"],  # fully determined by phase A
-            "qi": named["tnd_qi"],
-        }
-        diags = {
-            "clc": pre["clc"],
-            "covptot": named["covptot"],
-            "fplsl": fplsl,
-            "fplsn": fplsn,
-            "fhpsl": -fplsl * c.RLVTT,
-            "fhpsn": -fplsn * c.RLSTT,
-        }
-        if with_trajectory:
-            traj = {n: named[n] for n in ("c_rfl", "c_sfl", "c_cov")}
-            return tends, diags, traj
-        return tends, diags
-
-    if traj_only and not with_trajectory:
-        raise ValueError("traj_only requires with_trajectory=True")
-    if traj_only and (split or xla_pre or pipeline or pack):
-        raise ValueError(
-            "traj_only is incompatible with split/xla_pre/pipeline/pack"
-        )
-    out_names = LEVEL_OUTPUTS
-    if elide_covptot is None:
-        elide_covptot = not (c.LEVAPLS2 or c.LDRAIN1D)
-    if elide_covptot:
-        if c.LEVAPLS2 or c.LDRAIN1D:
-            raise ValueError("covptot is live when the evaporation branch is on")
-        # with the evaporation branch compiled out, covptot_out is
-        # identically zero (nl_level_post: ``covptot_out = where(eact,...)``
-        # with eact always false) — elide the constant-zero output stream
-        # (36 MB of HBM writes/step at the benchmark shape) and assemble
-        # zeros in XLA; the returned diagnostics contract is unchanged
-        out_names = tuple(n for n in out_names if n != "covptot")
-    traj_names = ("c_rfl", "c_sfl") + (() if elide_covptot else ("c_cov",))
-    if traj_only:
-        # the trajectory-producer form for cotangent-only adjoint runs
-        # (cloudsc2_ad_pallas cotangent_only=True): the forward tendency/
-        # diagnostic streams (~8 full-grid HBM writes) are never consumed
-        # there — write ONLY the per-level carry snapshots
-        out_names = traj_names
-    elif with_trajectory:
+    traj_names = ("c_rfl", "c_sfl") + (("c_cov",) if evap else ())
+    if with_trajectory:
         out_names = out_names + traj_names
-    if fuse_saturation and not traj_only:
-        out_names = out_names + ("qsat",)
-    if padded_traj and not with_trajectory:
-        raise ValueError("padded_traj requires with_trajectory=True")
-    if padded_traj and (split or xla_pre):
-        raise ValueError("padded_traj is not supported with split/xla_pre")
-    if pipeline and (split or fuse_saturation):
-        raise ValueError("pipeline is incompatible with split/fuse_saturation")
-    if pack and (split or xla_pre or fuse_saturation or pipeline or interleave != 1):
-        raise ValueError(
-            "pack is incompatible with split/xla_pre/fuse_saturation/"
-            "pipeline/interleave"
-        )
-    if tile_layout and (split or xla_pre or pipeline or pack or interleave != 1):
-        raise ValueError(
-            "tile_layout is incompatible with split/xla_pre/pipeline/pack/"
-            "interleave"
-        )
-    # packed stream groups (levelscan pack_inputs): step-invariant raw
-    # fields vs per-step-recomputed combines, so the invariant pack's XLA
-    # stack hoists out of chains/hot loops
-    pack_groups = (
-        (("ap", "dp", "lu_next", "lude", "mf"),
-         ("q2", "ql_fg", "qi_fg", "qsat", "t_fg"))
-        if pack else ()
-    )
     named = level_scan_pallas(
-        pipe_body if pipeline else (post_body if split else body),
-        level_inputs=level_inputs,
-        col_inputs=dict(
-            zip(("crh_rh2", "crh_deta1", "crh_rsq"), critical_rh_coeffs(trpaus)),
-            trpaus=trpaus,
-            aph_s=aph_s,
-        ),
-        scalar_inputs={"eta": eta, "scalm": scalm},
+        body,
+        level_inputs=level,
+        col_inputs=col_inputs,
+        scalar_inputs=scalars,
         out_names=out_names,
         ncarry=3,
-        kb=kb_,
-        wb=WB if wb is None else wb,
-        # split mode: phase A runs block-vectorized, so the remaining
-        # (small) phase-B tail is fully unrolled — required by pre_body.
-        # pipeline mode: rolled by default (pre_row supports 1 or >= kb)
-        unroll=kb_ if split
-        else (1 if pipeline and unroll is None
-              else (UNROLL if unroll is None else unroll)),
-        pre_body=pre_block if split else None,
-        interleave=interleave,
-        pre_row=pre_row_fn if pipeline else None,
-        pack_inputs=pack_groups,
-        tile_layout=tile_layout,
-        pre_tiled=state_tiled,
-        keep_tiled=state_tiled,
+        block_cols=block_cols,
+        num_warps=num_warps,
         interpret=interpret,
-        # padded_traj: hand the trajectory streams to the (ragged) reverse
-        # kernel at the padded height — no [:nlev] slice materialization
-        # between the two pallas_calls; the regular outputs are sliced
-        # here instead (cheap: they fuse into the XLA assembly ops)
-        return_padded=padded_traj,
+        name="cloudsc2_nl",
     )
-    if padded_traj:
-        named = {
-            n: (v if n in ("c_rfl", "c_sfl", "c_cov") else v[:nlev])
-            for n, v in named.items()
-        }
-    if traj_only:
-        return {}, {}, {n: named[n] for n in traj_names}
 
-    if state_tiled:
-        zrow = jnp.zeros((nj_t, 1, 8, wb), dtype)
-        cat_ax = 1
-    else:
-        zrow = jnp.zeros((1, ncols), dtype)
-        cat_ax = 0
-    fplsl = jnp.concatenate([zrow, named["fplsl"]], axis=cat_ax)
-    fplsn = jnp.concatenate([zrow, named["fplsn"]], axis=cat_ax)
-    tends = {
-        "t": named["tnd_t"],
-        "q": named["tnd_q"],
-        "ql": named["tnd_ql"],
-        "qi": named["tnd_qi"],
-    }
+    zrow = jnp.zeros((1, ncols), dtype)
+    fplsl = jnp.concatenate([zrow, named["fplsl"]], axis=0)
+    fplsn = jnp.concatenate([zrow, named["fplsn"]], axis=0)
+    tends = {n: named["tnd_" + n] for n in ("t", "q", "ql", "qi")}
     diags = {
         "clc": named["clc"],
-        "covptot": named.get("covptot", jnp.zeros_like(named["clc"])),
+        "covptot": named["covptot"] if evap else jnp.zeros_like(named["clc"]),
         "fplsl": fplsl,
         "fplsn": fplsn,
         "fhpsl": -fplsl * c.RLVTT,
         "fhpsn": -fplsn * c.RLSTT,
     }
-    if fuse_saturation:
-        diags["qsat"] = named["qsat"]
     if with_trajectory:
-        traj = {n: named[n] for n in traj_names}
-        return tends, diags, traj
+        return tends, diags, {n: named[n] for n in traj_names}
     return tends, diags

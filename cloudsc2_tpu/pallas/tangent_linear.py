@@ -1,18 +1,12 @@
-
 # Copyright 2026.
 # Licensed under the Apache License, Version 2.0.
-"""Pallas TPU kernel for the tangent-linear CLOUDSC2 scheme.
+"""GPU kernel for the tangent-linear CLOUDSC2 scheme.
 
-TPU-native realization of the reference ``cloudsc2_tl`` stencil
-(``physics/tangent_linear/_stencils/cloudsc2.py:23-774``) on the level-scan
-harness; the per-level physics is
+The reference ``cloudsc2_tl`` stencil
+(``physics/tangent_linear/_stencils/cloudsc2.py:23-774``) on the
+level-scan kernel; the per-level physics is
 :func:`cloudsc2_tpu.physics.tangent_linear.tl_level`, shared with the
-``lax.scan`` oracle path.
-
-Twice the field count of the NL kernel (22 level inputs after the
-dp / first-guess stream folds, 16 outputs, carry of 6), so the VMEM
-budget forces a shorter level block than the NL kernel (``KB = 8``;
-wb=1024 exceeds VMEM).
+``lax.scan`` path.
 """
 from __future__ import annotations
 
@@ -23,37 +17,16 @@ import jax
 import jax.numpy as jnp
 
 from cloudsc2_tpu.pallas.levelscan import level_scan_pallas
+from cloudsc2_tpu.pallas.nonlinear import check_kernel_dtype, kernel_inputs, with_crh
 from cloudsc2_tpu.params import Constants
-from cloudsc2_tpu.physics.nonlinear import (
-    critical_rh_coeffs,
-    scalm_profile,
-    tiled_stream_geometry,
-    tropopause_eta,
-    tropopause_eta_tiled,
-)
-from cloudsc2_tpu.physics.tangent_linear import (
-    TLCarry,
-    tl_level,
-    tl_level_post,
-    tl_level_pre,
-)
+from cloudsc2_tpu.physics.tangent_linear import TLCarry, tl_level
 
 Array = jnp.ndarray
 
-#: measured on v5e.  Round-3 interleaved A/B (post stream-folding /
-#: strength reduction): ROLLED kb=8/wb=512/unroll=1 10.02M cols/s beats
-#: unroll=2 9.45M (+6%) — rolled runs ragged (137 rows, no level padding),
-#: skipping the XLA pad copies on the 22 input streams and the output
-#: slices, and the smaller kernel body relieves the TL's VMEM pressure;
-#: 16/256/1 ties (10.0M), 8/256/1 9.67M.  (Round 2 had picked 8/512/2 over
-#: the round-1 8/256 ROLLED default (+10-14%) but never measured 8/512/1 —
-#: wb and unroll moved together.  unroll=4 adds nothing, wb=1024 and
-#: kb=14/16 rolled fail the Mosaic compile (VMEM).)  kb=10 beats kb=8 by a
-#: consistent +0.7-2.9% (3 processes x 9 interleaved samples): 137 levels
-#: = 14 blocks at kb=10 vs 18 at kb=8 — fewer sequential grid steps.
-KB = 10
-WB = 512
-UNROLL = 1
+#: columns per block and warps per block, chosen on the card by
+#: ``benchmarks/kernel_vs_scan.py`` (CHANGES.md, PR 1)
+BLOCK_COLS = 256
+NUM_WARPS = 4
 
 LEVEL_OUTPUTS = (
     "tnd_t", "tnd_t_i", "tnd_q", "tnd_q_i", "tnd_ql", "tnd_ql_i",
@@ -62,199 +35,85 @@ LEVEL_OUTPUTS = (
 )
 
 
+def tangent_inputs(state: Dict[str, Array], dt: float) -> Dict[str, Array]:
+    """The perturbation streams, folded like the forward ones
+    (:func:`cloudsc2_tpu.pallas.nonlinear.kernel_inputs`)."""
+    lu_i = state["lu_i"]
+    return {
+        "ap_i": state["ap_i"],
+        "dp_i": state["aph_i"][1:] - state["aph_i"][:-1],
+        "lu_next_i": jnp.concatenate(
+            [lu_i[1:], jnp.zeros_like(lu_i[:1])], axis=0
+        ),
+        "lude_i": state["lude_i"],
+        "mf_i": state["mfu_i"] + state["mfd_i"],
+        "q2_i": state["q_i"] + dt * state["tnd_cml_q_i"] + state["supsat_i"],
+        "ql_fg_i": state["ql_i"] + dt * state["tnd_cml_ql_i"],
+        "qi_fg_i": state["qi_i"] + dt * state["tnd_cml_qi_i"],
+        "qsat_i": state["qsat_i"],
+        "t_fg_i": state["t_i"] + dt * state["tnd_cml_t_i"],
+    }
+
+
 @partial(jax.jit, static_argnames=(
-    "dt", "c", "interpret", "kb", "wb", "unroll", "split", "tile_layout",
-    "state_tiled", "tangent_only",
+    "dt", "c", "interpret", "block_cols", "num_warps",
 ))
 def cloudsc2_tl_pallas(
     state: Dict[str, Array],
     dt: float,
     c: Constants,
     interpret: bool = False,
-    kb: int | None = None,
-    wb: int | None = None,
-    unroll: int | None = None,
-    split: bool = False,
-    tile_layout: bool = False,
-    state_tiled: bool = False,
-    tangent_only: bool = False,
+    block_cols: int = BLOCK_COLS,
+    num_warps: int = NUM_WARPS,
 ) -> Tuple[Dict[str, Array], Dict[str, Array]]:
     """Drop-in replacement for :func:`cloudsc2_tpu.physics.tangent_linear.
-    cloudsc2_tl` backed by the Pallas kernel (f32, lane-aligned columns).
-
-    ``split=True`` evaluates the carry-independent phase A
-    (:func:`tl_level_pre`) block-vectorized over each level block via the
-    harness's ``pre_body`` and fully unrolls the remaining carry-dependent
-    tail (see the NL kernel's measured rationale in
-    ``benchmarks/README.md``).
-
-    ``tile_layout``/``state_tiled``: tile-contiguous streams / tiled-native
-    state, as on :func:`cloudsc2_tpu.pallas.nonlinear.cloudsc2_nl_pallas`
-    (the most stream-bound kernel benefits most — see
-    ``benchmarks/sweep_tl_ad_tiled.py``)."""
-    if state_tiled:
-        if not tile_layout:
-            raise ValueError("state_tiled requires tile_layout=True")
-        if split:
-            raise ValueError("state_tiled is incompatible with split")
-        from cloudsc2_tpu.pallas.levelscan import _check_tiled_state
-
-        nj_t, nlev, wb, ncols = _check_tiled_state(state["ap"], wb)
-    else:
-        nlev, ncols = state["ap"].shape
-    if tile_layout and split:
-        raise ValueError("tile_layout is incompatible with split")
+    cloudsc2_tl` backed by the GPU kernel (float32, any column count)."""
+    check_kernel_dtype(state)
+    ncols = state["ap"].shape[1]
     dtype = state["ap"].dtype
+    level, col_inputs, scalars = kernel_inputs(state, dt, c)
+    level.update(tangent_inputs(state, dt))
+    col_inputs["aph_s_i"] = state["aph_i"][-1]
+    evap = bool(c.LEVAPLS2 or c.LDRAIN1D)
 
-    eta = state["eta"].astype(dtype)
-    scalm = scalm_profile(eta, c)
-    t_fg = state["t"] + dt * state["tnd_cml_t"]
-    lu, lu_i = state["lu"], state["lu_i"]
-    if state_tiled:
-        dp, aph_s, lu_next = tiled_stream_geometry(state["aph"], lu)
-        dp_i, aph_s_i, lu_next_i = tiled_stream_geometry(
-            state["aph_i"], lu_i
-        )
-        trpaus = tropopause_eta_tiled(eta, t_fg)
-    else:
-        dp = state["aph"][1:] - state["aph"][:-1]
-        dp_i = state["aph_i"][1:] - state["aph_i"][:-1]
-        aph_s = state["aph"][-1]
-        aph_s_i = state["aph_i"][-1]
-        lu_next = jnp.concatenate([lu[1:], jnp.zeros_like(lu[:1])], axis=0)
-        lu_next_i = jnp.concatenate(
-            [lu_i[1:], jnp.zeros_like(lu_i[:1])], axis=0
-        )
-        trpaus = tropopause_eta(eta, t_fg)
-
-    level_inputs = {
-        "ap": state["ap"],
-        # interface pressures enter only as differences (tl_level_pre):
-        # two dp streams instead of four aph/aph_i slice copies
-        "dp": dp,
-        "lu_next": lu_next,
-        "lude": state["lude"],
-        "mf": state["mfu"] + state["mfd"],
-        "qsat": state["qsat"],
-        "t_fg": t_fg,
-        # first-guess combines (values + perturbations) precomputed in XLA
-        # (tl_level_pre accepts them): 7 streams instead of 16 raw fields —
-        # the biggest VMEM/stream relief for this most stream-bound kernel
-        "q2": state["q"] + dt * state["tnd_cml_q"] + state["supsat"],
-        "ql_fg": state["ql"] + dt * state["tnd_cml_ql"],
-        "qi_fg": state["qi"] + dt * state["tnd_cml_qi"],
-        "t_fg_i": state["t_i"] + dt * state["tnd_cml_t_i"],
-        "q2_i": state["q_i"] + dt * state["tnd_cml_q_i"] + state["supsat_i"],
-        "ql_fg_i": state["ql_i"] + dt * state["tnd_cml_ql_i"],
-        "qi_fg_i": state["qi_i"] + dt * state["tnd_cml_qi_i"],
-        "ap_i": state["ap_i"],
-        "dp_i": dp_i,
-        "lu_next_i": lu_next_i,
-        "lude_i": state["lude_i"],
-        "mf_i": state["mfu_i"] + state["mfd_i"],
-        "qsat_i": state["qsat_i"],
-    }
-
-    def body(carry, x, col, _g):
-        x = dict(x, crh_rh2=col["crh_rh2"], crh_deta1=col["crh_deta1"],
-                 crh_rsq=col["crh_rsq"])
+    def body(carry, x, col, _k):
         carry, outs = tl_level(
-            TLCarry(*carry), x, col["aph_s"], col["aph_s_i"], col["trpaus"], dt, c
+            TLCarry(*carry), with_crh(x, col), col["aph_s"], col["aph_s_i"],
+            col["trpaus"], dt, c,
         )
         return tuple(carry), outs
 
-    def pre_block(xb, col):
-        """Phase A on a whole (kb, 8, wb) level block — bulk tensor ops."""
-        xb = dict(xb, crh_rh2=col["crh_rh2"], crh_deta1=col["crh_deta1"],
-                  crh_rsq=col["crh_rsq"])
-        pre = tl_level_pre(xb, col["aph_s"], col["trpaus"], dt, c)
-        # drop pure passthroughs of level inputs (e.g. dp/dp_i): same
-        # value, and the harness rejects shadowing
-        return {k: v for k, v in pre.items() if k not in xb}
-
-    def post_body(carry, x, col, _g):
-        carry, outs = tl_level_post(
-            TLCarry(*carry), x, col["aph_s"], col["aph_s_i"], dt, c
-        )
-        return tuple(carry), outs
-
-    kb_ = KB if kb is None else kb
-    out_names = LEVEL_OUTPUTS
-    if tangent_only:
-        if split:
-            raise ValueError("tangent_only is incompatible with split")
-        # δ-only operator form: the forward trajectory streams (tnd_t,
-        # tnd_q, tnd_ql, tnd_qi, clc, fplsl, fplsn — 7 full-grid HBM
-        # writes, ~250 MB/step at the benchmark shape) duplicate the NL
-        # run every 4D-Var consumer already has; drop them and return
-        # only the perturbation outputs.  The reference TL emits both
-        # because its forward recompute is fused in-stencil
-        # (tangent_linear/_stencils/cloudsc2.py) — here the recompute
-        # still runs (it feeds the linearization) but never touches HBM
-        out_names = tuple(n for n in out_names if n.endswith("_i"))
-    if not (c.LEVAPLS2 or c.LDRAIN1D):
-        # evaporation branch compiled out: covptot and covptot_i are
-        # identically zero — elide both constant-zero output streams
-        # (72 MB of HBM writes/step at the benchmark shape; same measured
-        # win as the NL kernel's covptot elision) and assemble zeros
-        out_names = tuple(
-            n for n in out_names if n not in ("covptot", "covptot_i")
-        )
+    # with the evaporation branch compiled out covptot and covptot_i are
+    # identically zero: neither stream is written
+    out_names = LEVEL_OUTPUTS if evap else tuple(
+        n for n in LEVEL_OUTPUTS if n not in ("covptot", "covptot_i")
+    )
     named = level_scan_pallas(
-        post_body if split else body,
-        level_inputs=level_inputs,
-        col_inputs=dict(
-            zip(("crh_rh2", "crh_deta1", "crh_rsq"), critical_rh_coeffs(trpaus)),
-            trpaus=trpaus,
-            aph_s=aph_s,
-            aph_s_i=aph_s_i,
-        ),
-        scalar_inputs={"eta": eta, "scalm": scalm},
+        body,
+        level_inputs=level,
+        col_inputs=col_inputs,
+        scalar_inputs=scalars,
         out_names=out_names,
         ncarry=6,
-        kb=kb_,
-        wb=WB if wb is None else wb,
-        unroll=kb_ if split else (UNROLL if unroll is None else unroll),
-        pre_body=pre_block if split else None,
-        tile_layout=tile_layout,
-        pre_tiled=state_tiled,
-        keep_tiled=state_tiled,
+        block_cols=block_cols,
+        num_warps=num_warps,
         interpret=interpret,
+        name="cloudsc2_tl",
     )
 
-    if state_tiled:
-        zrow = jnp.zeros((nj_t, 1, 8, wb), dtype)
-        cat_ax = 1
-    else:
-        zrow = jnp.zeros((1, ncols), dtype)
-        cat_ax = 0
+    zrow = jnp.zeros((1, ncols), dtype)
     tends = {}
     for name in ("t", "q", "ql", "qi"):
-        if not tangent_only:
-            tends[name] = named["tnd_" + name]
+        tends[name] = named["tnd_" + name]
         tends[name + "_i"] = named["tnd_" + name + "_i"]
-    zfull = None
-    diags = {}
-    diag_keys = (
-        ("clc_i", "covptot_i") if tangent_only
-        else ("clc", "clc_i", "covptot", "covptot_i")
-    )
-    for n in diag_keys:
-        if n in named:
-            diags[n] = named[n]
-        else:
-            if zfull is None:
-                zfull = jnp.zeros_like(named["clc_i"])
-            diags[n] = zfull
-    flux_keys = (
-        ("fplsl_i", "fplsn_i") if tangent_only
-        else ("fplsl", "fplsl_i", "fplsn", "fplsn_i")
-    )
-    for n in flux_keys:
-        diags[n] = jnp.concatenate([zrow, named[n]], axis=cat_ax)
-    if not tangent_only:
-        diags["fhpsl"] = -diags["fplsl"] * c.RLVTT
-        diags["fhpsn"] = -diags["fplsn"] * c.RLSTT
+    zfull = jnp.zeros_like(named["clc"])
+    diags = {
+        n: named.get(n, zfull) for n in ("clc", "clc_i", "covptot", "covptot_i")
+    }
+    for n in ("fplsl", "fplsl_i", "fplsn", "fplsn_i"):
+        diags[n] = jnp.concatenate([zrow, named[n]], axis=0)
+    diags["fhpsl"] = -diags["fplsl"] * c.RLVTT
+    diags["fhpsn"] = -diags["fplsn"] * c.RLSTT
     diags["fhpsl_i"] = -diags["fplsl_i"] * c.RLVTT
     diags["fhpsn_i"] = -diags["fplsn_i"] * c.RLSTT
     return tends, diags

@@ -5,7 +5,7 @@
 
 Layout contract (see :mod:`cloudsc2_tpu.grid`): full-level fields are
 ``(nlev, ncols)``, interface fields ``(nlev + 1, ncols)``, the eta coordinate
-``(nlev,)``.  Columns — the trailing, lane-friendly axis — are the only
+``(nlev,)``.  Columns — the trailing, coalesced axis — are the only
 sharded axis; levels are always local because the scheme is a strict
 top-down recurrence (reference ``nonlinear/_stencils/cloudsc2.py:93-113,
 382-388``).
@@ -18,18 +18,23 @@ import jax
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-#: mesh axis names: ``node`` spans hosts (DCN), ``device`` spans chips in a
-#: slice (ICI).  Columns shard over both.
+#: mesh axis names: ``node`` spans hosts (processes), ``device`` spans the
+#: cards of one host.  Columns shard over both.
 MESH_AXES = ("node", "device")
 
 
 def initialize_distributed(**kwargs: Any) -> None:
     """Initialize multi-host JAX (no-op when single-process).
 
-    The reference has no multi-process support (SURVEY.md §2.3); this is the
-    TPU-native path to N hosts: call once per process before building the
-    mesh, with coordinator address/process counts from the launcher
-    environment (``jax.distributed.initialize`` auto-detects on TPU pods).
+    The reference has no multi-process support (SURVEY.md §2.3); this is
+    the path to N processes: call once per process before building the
+    mesh, with the coordinator address, process count and process id from
+    the launcher (``coordinator_address``, ``num_processes``,
+    ``process_id``; ``jax.distributed.initialize`` finds them itself only
+    where a cluster environment such as SLURM provides them).  On one host
+    of several cards, give each process its own card
+    (``CUDA_VISIBLE_DEVICES`` or ``local_device_ids``): JAX reserves most of
+    a card's memory when it starts, so two processes cannot share one.
     """
     # Do NOT touch any backend-initializing JAX API (jax.process_count,
     # jax.devices, ...) before calling initialize(): that initializes a
@@ -38,7 +43,7 @@ def initialize_distributed(**kwargs: Any) -> None:
         jax.distributed.initialize(**kwargs)
     except RuntimeError as e:
         if "already" in str(e).lower():
-            return  # runtime (e.g. a TPU pod launcher) initialized it for us
+            return  # the launcher's runtime initialized it already
         raise
     except ValueError:
         # single-process (no coordinator configured anywhere): local devices
@@ -51,7 +56,8 @@ def column_mesh(
     """Build the 2-D ``('node', 'device')`` mesh over the first ``n_devices``.
 
     ``n_nodes`` defaults to ``jax.process_count()`` so the outer axis follows
-    host boundaries (collectives within a host ride ICI, across hosts DCN).
+    process boundaries; the cards of one host are joined all to all
+    (NVLink), so the inner axis needs no particular shape.
     With ``n_devices`` given (e.g. in tests or dry runs) the devices are
     factored ``(n_nodes, n_devices // n_nodes)``.
     """

@@ -20,12 +20,12 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh
 
+from cloudsc2_tpu.dispatch import scheme_fn
 from cloudsc2_tpu.params import Constants
 from cloudsc2_tpu.parallel.mesh import state_shardings
 from cloudsc2_tpu.physics.adjoint import cloudsc2_ad
 from cloudsc2_tpu.physics.diagnostics import eta_levels
 from cloudsc2_tpu.physics.increment import state_increment
-from cloudsc2_tpu.physics.nonlinear import cloudsc2_nl
 from cloudsc2_tpu.physics.saturation import saturation
 from cloudsc2_tpu.physics.tangent_linear import cloudsc2_tl
 from cloudsc2_tpu.validation.symmetry import (
@@ -37,75 +37,28 @@ from cloudsc2_tpu.validation.symmetry import (
 Array = jnp.ndarray
 
 
-from cloudsc2_tpu.dispatch import use_pallas as _use_pallas
-
-
-def _nl_impl(state: Dict[str, Array], dt: float, c: Constants, impl: str):
-    """Select the NL implementation: hand-written Pallas kernel on TPU for
-    f32 with lane-aligned columns, ``lax.scan`` otherwise (CPU, f64, or
-    ragged column counts).  ``pallas-interpret`` forces the kernel in
-    interpreter mode (CPU testing)."""
-    if _use_pallas(state, impl):
-        from cloudsc2_tpu.pallas.nonlinear import cloudsc2_nl_pallas
-
-        if impl == "pallas-tiled":
-            from cloudsc2_tpu.dispatch import _tiled_boundary
-
-            return _tiled_boundary(cloudsc2_nl_pallas)(state, dt, c)
-        return cloudsc2_nl_pallas(
-            state, dt, c, interpret=impl == "pallas-interpret"
-        )
-    return cloudsc2_nl(state, dt, c)
-
-
 def forward_step(
     state: Dict[str, Array], dt: float, c: Constants, impl: str = "auto"
 ) -> Tuple[Dict[str, Array], Dict[str, Array]]:
     """Saturation + nonlinear scheme (the reference hot loop,
-    ``drivers/run_nonlinear.py:115-119``).  ``diags["qsat"]`` carries the
-    Saturation component's output on the Pallas path.
-
-    The Pallas path computes saturation as an XLA op feeding the unrolled
-    NL kernel rather than fusing it into the kernel: measured on v5e
-    (benchmarks/sweep_nl.py history), XLA-saturation + unroll=2 kernel runs
-    15.9M cols/s vs 14.7M for the fused kernel — the in-kernel saturation
-    lengthens the level body's dependency chains by more than the qsat HBM
-    round trip costs.  (Round 1 measured the opposite on the pre-
-    strength-reduced body; ``fuse_saturation=True`` remains available on
-    :func:`cloudsc2_nl_pallas`.)
+    ``drivers/run_nonlinear.py:115-119``); ``impl`` picks the NL
+    implementation through :func:`cloudsc2_tpu.dispatch.scheme_fn`.
+    ``diags["qsat"]`` carries the Saturation component's output.
 
     A caller-provided ``state["eta"]`` is used as-is; eta is only derived
     here when missing.  This matters under ``shard_map``: eta is defined
     from the *global* column 0 (reference ``common/diagnostics.py:28-45``),
     so a shard-local recompute would silently diverge whenever ``ap/aph_s``
     varies per column — :func:`make_sharded_forward_step` computes it once
-    globally and passes it in replicated.
-
-    It also matters for performance when this function is traced inside a
-    loop: eta is loop-invariant, but XLA does not hoist the fallback
-    derivation (and the scalar-operand chain it feeds) out of a
-    ``fori_loop`` — measured +1.3 ms/step on v5e at the benchmark shape
-    (same-process A/B, bench.py).  Hot loops should pass eta in, as the
-    drivers (EtaLevels before the timed loop) and bench.py do.
+    globally and passes it in replicated.  Hot loops should pass eta in,
+    as the drivers (EtaLevels before the timed loop) do.
     """
     s = dict(state)
     if "eta" not in s:
         s["eta"] = eta_levels(s["ap"], s["aph"])
     s["qsat"] = saturation(s["ap"], s["t"], kflag=1, lphylin=c.LPHYLIN, c=c)
-    if _use_pallas(s, impl):
-        from cloudsc2_tpu.pallas.nonlinear import cloudsc2_nl_pallas
-
-        if impl == "pallas-tiled":
-            from cloudsc2_tpu.dispatch import _tiled_boundary
-
-            tends, diags = _tiled_boundary(cloudsc2_nl_pallas)(s, dt, c)
-        else:
-            tends, diags = cloudsc2_nl_pallas(
-                s, dt, c, interpret=impl == "pallas-interpret"
-            )
-        diags["qsat"] = s["qsat"]
-        return tends, diags
-    return _nl_impl(s, dt, c, impl)
+    tends, diags = scheme_fn("nl", impl, s["ap"].dtype, c)(s, dt, c)
+    return tends, dict(diags, qsat=s["qsat"])
 
 
 def full_step(
@@ -115,6 +68,11 @@ def full_step(
 
     Returns ``(nl_tendencies, norm1, norm2)`` where the norms are the
     per-column ``<Mx, Mx>`` and ``<x, M*(Mx)>`` of the symmetry test.
+
+    It runs the ``lax.scan`` paths, which GSPMD partitions by columns
+    (:func:`make_sharded_fn`); GSPMD cannot partition a kernel call, so the
+    kernels run sharded only per device, under ``shard_map``
+    (:func:`make_sharded_physics`, :func:`make_sharded_forward_step`).
     """
     s = dict(state)
     if "eta" not in s:
@@ -166,10 +124,10 @@ def make_sharded_physics(fn, mesh: Mesh):
     column-sharded, 1-D fields (eta) replicated; each device runs the
     scheme on its local column shard — no communication, columns are
     independent (SURVEY.md §2.3).  Works for the ``lax.scan`` paths and the
-    Pallas kernels alike (GSPMD cannot partition a ``pallas_call``, so the
-    kernels require ``shard_map``; per-shard columns must then stay
-    lane-aligned).  One compiled step per (dt, c, state structure) — the
-    returned callable is constructed once per protocol run and reused.
+    GPU kernels alike (GSPMD cannot partition a ``pallas_call``, so the
+    kernels need ``shard_map``).  One compiled step per (dt, c, state
+    structure) — the returned callable is constructed once per protocol
+    run and reused.
     """
     from jax import shard_map
     from jax.sharding import PartitionSpec as P
@@ -188,9 +146,7 @@ def make_sharded_physics(fn, mesh: Mesh):
             return spec2d if v.ndim == 2 else P()
 
         in_specs = ({k: spec_for(v) for k, v in state.items()},)
-        # discover the output key sets on the PER-DEVICE shard shapes (as
-        # make_sharded_forward_step: the Pallas lane-alignment check must
-        # see what each device sees)
+        # discover the output key sets on the PER-DEVICE shard shapes
         local_abs = {
             k: jax.ShapeDtypeStruct(
                 (v.shape[0], v.shape[1] // nshards) if v.ndim == 2 else v.shape,
@@ -213,10 +169,10 @@ def make_sharded_forward_step(
 ):
     """Column-sharded forward step via ``shard_map``.
 
-    GSPMD cannot partition a ``pallas_call`` automatically, so the Pallas
-    fast path runs under ``shard_map``: each device executes the kernel on
-    its local column shard (which must stay lane-aligned per shard); there
-    is no communication — columns are independent (SURVEY.md §2.3).
+    GSPMD cannot partition a ``pallas_call`` automatically, so the kernel
+    path runs under ``shard_map``: each device executes the kernel on its
+    local column shard; there is no communication — columns are
+    independent (SURVEY.md §2.3).
     """
     from jax import shard_map
     from jax.sharding import PartitionSpec as P
@@ -235,10 +191,8 @@ def make_sharded_forward_step(
             return spec2d if v.ndim == 2 else P()
 
         in_specs = ({k: spec_for(v) for k, v in state.items()},)
-        # discover the diag key set (the fused Pallas path adds "qsat") by
-        # abstractly tracing on the PER-DEVICE shard shapes — the Pallas
-        # eligibility check (lane-aligned local columns) must see what each
-        # device sees, not the global shape
+        # discover the diag key set by abstractly tracing on the
+        # PER-DEVICE shard shapes
         nshards = mesh.devices.size
         local_abs = {
             k: jax.ShapeDtypeStruct(

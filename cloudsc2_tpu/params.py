@@ -1,7 +1,7 @@
 
 # Copyright 2026.
 # Licensed under the Apache License, Version 2.0.
-"""Physical-parameter groups for the CLOUDSC2 TPU framework.
+"""Physical-parameter groups for the CLOUDSC2 framework.
 
 The reference framework reads six Fortran-namelist-style parameter groups from
 HDF5 scalar datasets and bakes them into GT4Py kernels as compile-time
@@ -263,7 +263,7 @@ class YrphncParams:
 class Constants:
     """Flattened constant bundle consumed by the CLOUDSC2 kernels.
 
-    This is the TPU analogue of the merged GT4Py externals dict built in
+    This is the analogue of the merged GT4Py externals dict built in
     ``physics/nonlinear/microphysics.py:62-78`` (plus TL/AD variants).  All
     fields are static Python scalars: under ``jax.jit`` they fold into the
     compiled executable.
@@ -313,30 +313,21 @@ class Constants:
     ZEPS2: float = 1e-10
     ZQMAX: float = 0.5
     ZSCAL: float = 0.9
-    #: divide strategy for the physics bodies ("exact" | "faithful" |
-    #: "approx", see cloudsc2_tpu.physics.fastmath.DIV_MODES).  Non-exact
-    #: modes use the TPU hardware reciprocal and are only legal inside the
-    #: Pallas kernels; the scan/oracle paths keep the default.  NOTE:
-    #: ``FAST_DIV="exact"`` alone no longer reproduces the reference
-    #: cuadjtqs bit-for-bit — the compact saturation-adjustment form
-    #: (``CUADJ_COMPACT=True``, the default) precomputes a reciprocal and
-    #: re-associates the condensation quotient (~1 ulp, test-absorbed);
-    #: reference-bit-exact adjustment requires ``CUADJ_COMPACT=False`` too.
-    FAST_DIV: str = "exact"
     #: predicate-select strategy for the level bodies.  ``False``: branch
     #: predication as ``jnp.where`` selects.  ``True``: every
     #: ``where(p, x, 0)``-class site multiplies by a shared float mask
     #: instead (``fastmath.sel0``) — bit-identical NL/TL outputs, AD
     #: (the vjp transpose) within ~1e-12 relative from reassociated
     #: cotangent sums (asserted by
-    #: ``tests/test_nonlinear.py::test_mask_select_bit_exact``), different
-    #: VPU op mix (mul ~1 vs select ~4 measured op-equivalents on v5e).
+    #: ``tests/test_nonlinear.py::test_mask_select_bit_exact``).
     MASK_SELECT: bool = False
     #: saturation-adjustment form.  ``True`` (default): the compact
     #: cor-free condensation quotient — exact algebra, two fewer
     #: carry-chain divides per Newton iteration (see
     #: ``physics/cuadjtqs.py:_nl_iter``); ``False``: the reference-shaped
-    #: ``cor``-based form, kept for A/B measurement.
+    #: ``cor``-based form, kept for A/B measurement.  With ``True`` the
+    #: adjustment is not bit-for-bit the reference's: it precomputes a
+    #: reciprocal and re-associates the condensation quotient (~1 ulp).
     CUADJ_COMPACT: bool = True
 
     def replace(self, **kw: Any) -> "Constants":

@@ -1,11 +1,11 @@
 
 # Copyright 2026.
 # Licensed under the Apache License, Version 2.0.
-"""CLOUDSC2 adjoint scheme, TPU-native formulation.
+"""CLOUDSC2 adjoint scheme, JAX formulation.
 
 Capability parity with the reference ``cloudsc2_ad`` gtscript stencil
 (``src/cloudsc2_gt4py/physics/adjoint/_stencils/cloudsc2.py:24-996``) and its
-component (``physics/adjoint/microphysics.py:46-238``), built the TPU way.
+component (``physics/adjoint/microphysics.py:46-238``), built by transposition.
 
 Design
 ------

@@ -21,7 +21,7 @@ from typing import NamedTuple
 import jax.numpy as jnp
 
 from cloudsc2_tpu.params import Constants
-from cloudsc2_tpu.physics.fastmath import div, fmask, rcp, sel0
+from cloudsc2_tpu.physics.fastmath import fmask, sel0
 
 
 class _Phase(NamedTuple):
@@ -64,21 +64,20 @@ def _nl_iter(ap, t, q, p: _Phase, c: Constants, rap=None):
     CLAUDE.md).  ``CUADJ_COMPACT=False`` keeps the reference-shaped form
     for A/B measurement.
     """
-    fd = c.FAST_DIV
-    rt4 = rcp(t - p.z4es, fd)
+    rt4 = 1.0 / (t - p.z4es)
     foeew = c.R2ES * jnp.exp(p.z3es * (t - c.RTT) * rt4)
     if c.CUADJ_COMPACT:
-        s = jnp.minimum(foeew * (rap if rap is not None else rcp(ap, fd)), c.ZQMAX)
+        s = jnp.minimum(foeew * (rap if rap is not None else 1.0 / ap), c.ZQMAX)
         u = 1.0 - c.RETV * s
         z2s = p.z5alcp * rt4 * rt4
-        cond = div((q * u - s) * u, u * u + s * z2s, fd)
+        cond = (q * u - s) * u / (u * u + s * z2s)
     else:
-        qsat0 = foeew * rap if (rap is not None and fd != "exact") else div(foeew, ap, fd)
+        qsat0 = foeew / ap
         qsat = jnp.minimum(qsat0, c.ZQMAX)
-        cor = rcp(1.0 - c.RETV * qsat, fd)
+        cor = 1.0 / (1.0 - c.RETV * qsat)
         qsat = qsat * cor
         z2s = p.z5alcp * rt4 * rt4
-        cond = div(q - qsat, 1.0 + qsat * cor * z2s, fd)
+        cond = (q - qsat) / (1.0 + qsat * cor * z2s)
     return t + p.zaldcp * cond, q - cond
 
 
@@ -99,11 +98,10 @@ def _tl_iter(ap, ap_i, t, t_i, q, q_i, p: _Phase, c: Constants, qp=None):
     denominators).  ``qp`` optionally supplies the iteration-invariant
     ``1/ap`` (hoisted across both iterations by the caller).
     """
-    fd = c.FAST_DIV
     if qp is None:
-        qp = rcp(ap, fd)
+        qp = 1.0 / ap
     qp_i = -ap_i * qp * qp
-    rt4 = rcp(t - p.z4es, fd)
+    rt4 = 1.0 / (t - p.z4es)
     foeew = c.R2ES * jnp.exp(p.z3es * (t - c.RTT) * rt4)
     foeew_i = foeew * p.z3es * t_i * (c.RTT - p.z4es) * rt4 * rt4
     qsat = qp * foeew
@@ -128,15 +126,15 @@ def _tl_iter(ap, ap_i, t, t_i, q, q_i, p: _Phase, c: Constants, qp=None):
         den = u * u + s * z2s
         num_i = (q_i * u + q * u_i - s_i) * u + w * u_i
         den_i = 2.0 * u * u_i + s_i * z2s + s * z2s_i
-        rden = rcp(den, fd)
+        rden = 1.0 / den
         cond = num * rden
         cond_i = (num_i - cond * den_i) * rden
     else:
-        cor = rcp(1.0 - c.RETV * qsat, fd)
+        cor = 1.0 / (1.0 - c.RETV * qsat)
         cor_i = c.RETV * qsat_i * cor * cor
         qsat_i = qsat_i * cor + qsat * cor_i
         qsat = qsat * cor
-        rdenom = rcp(1.0 + qsat * cor * z2s, fd)
+        rdenom = 1.0 / (1.0 + qsat * cor * z2s)
         cond = (q - qsat) * rdenom
         cond_i = (q_i - qsat_i) * rdenom - (q - qsat) * (
             qsat_i * cor * z2s + qsat * cor_i * z2s + qsat * cor * z2s_i
@@ -147,7 +145,7 @@ def _tl_iter(ap, ap_i, t, t_i, q, q_i, p: _Phase, c: Constants, qp=None):
 def cuadjtqs_tl(ap, ap_i, t, t_i, q, q_i, c: Constants):
     """Tangent-linear two-iteration saturation adjustment."""
     p = _select_phase(t, c)
-    qp = rcp(ap, c.FAST_DIV)  # iteration-invariant: one reciprocal for both
+    qp = 1.0 / ap  # iteration-invariant: one reciprocal for both
     t, t_i, q, q_i = _tl_iter(ap, ap_i, t, t_i, q, q_i, p, c, qp)
     t, t_i, q, q_i = _tl_iter(ap, ap_i, t, t_i, q, q_i, p, c, qp)
     return t, t_i, q, q_i
@@ -155,27 +153,26 @@ def cuadjtqs_tl(ap, ap_i, t, t_i, q, q_i, c: Constants):
 
 def _fwd_iter_traj(ap, t, q, p: _Phase, c: Constants, rap=None):
     """Forward iteration storing the trajectory needed by the reverse sweep."""
-    fd = c.FAST_DIV
-    rt4 = rcp(t - p.z4es, fd)
+    rt4 = 1.0 / (t - p.z4es)
     foeew = c.R2ES * jnp.exp(p.z3es * (t - c.RTT) * rt4)
     if c.CUADJ_COMPACT:
-        s0 = foeew * (rap if rap is not None else rcp(ap, fd))
+        s0 = foeew * (rap if rap is not None else 1.0 / ap)
         clip = s0 > c.ZQMAX
         s = jnp.where(clip, c.ZQMAX, s0)
         u = 1.0 - c.RETV * s
         z2s = p.z5alcp * rt4 * rt4
         w = q * u - s
-        rden = rcp(u * u + s * z2s, fd)
+        rden = 1.0 / (u * u + s * z2s)
         cond = w * u * rden
         traj = (t, q, foeew, s, u, z2s, w, rden, rt4, clip)
         return t + p.zaldcp * cond, q - cond, traj
-    qsat0 = div(foeew, ap, fd)
+    qsat0 = foeew / ap
     clip = qsat0 > c.ZQMAX
     qsat_unc = jnp.where(clip, c.ZQMAX, qsat0)
-    cor = rcp(1.0 - c.RETV * qsat_unc, fd)
+    cor = 1.0 / (1.0 - c.RETV * qsat_unc)
     qsat = qsat_unc * cor
     z2s = p.z5alcp * rt4 * rt4
-    cond = div(q - qsat, 1.0 + qsat * cor * z2s, fd)
+    cond = (q - qsat) / (1.0 + qsat * cor * z2s)
     traj = (t, q, foeew, qsat_unc, qsat, cor, z2s, clip)
     return t + p.zaldcp * cond, q - cond, traj
 
@@ -192,9 +189,8 @@ def cuadjtqs_ad(ap, ap_i, t, t_i, q, q_i, c: Constants):
     ``jax.vjp`` of :func:`cuadjtqs_nl` by
     ``tests/test_adjoint.py::test_cuadjtqs_ad_matches_vjp``).
     """
-    fd = c.FAST_DIV
     p = _select_phase(t, c)
-    rap = rcp(ap, fd)
+    rap = 1.0 / ap
     if c.CUADJ_COMPACT:
         t1, q1, traj1 = _fwd_iter_traj(ap, t, q, p, c, rap)
         t2, q2, traj2 = _fwd_iter_traj(ap, t1, q1, p, c, rap)
@@ -230,8 +226,8 @@ def cuadjtqs_ad(ap, ap_i, t, t_i, q, q_i, c: Constants):
     for traj in (traj2, traj1):
         targ, q_in, foeew, qsat_unc, qsat, cor, z2s, clip = traj
         cond1_i = -q_i + p.zaldcp * t_i
-        rdenom = rcp(1.0 + qsat * cor * z2s, fd)
-        rt4 = rcp(targ - p.z4es, fd)
+        rdenom = 1.0 / (1.0 + qsat * cor * z2s)
+        rt4 = 1.0 / (targ - p.z4es)
         q_i = q_i + cond1_i * rdenom
         wgt = cond1_i * (q_in - qsat) * rdenom * rdenom
         qsat_i = -cond1_i * rdenom - wgt * cor * z2s
@@ -242,7 +238,7 @@ def cuadjtqs_ad(ap, ap_i, t, t_i, q, q_i, c: Constants):
         qsat_i = qsat_i * cor
         qsat_i = qsat_i + cor_i * c.RETV * cor * cor
         qsat_i = jnp.where(clip, 0.0, qsat_i)
-        foeew_i = qsat_i * rap if fd != "exact" else qsat_i / ap
+        foeew_i = qsat_i / ap
         qp_i = qp_i + qsat_i * foeew
         targ_i = targ_i + (
             foeew_i
@@ -253,5 +249,5 @@ def cuadjtqs_ad(ap, ap_i, t, t_i, q, q_i, c: Constants):
             * rt4
         )
         t_i = t_i + targ_i
-    ap_i = ap_i - qp_i * rap * rap if fd != "exact" else ap_i - qp_i / ap**2.0
+    ap_i = ap_i - qp_i / ap**2.0
     return ap_i, t2, t_i, q2, q_i

@@ -1,26 +1,19 @@
 
 # Copyright 2026.
 # Licensed under the Apache License, Version 2.0.
-"""Faithful fast f32 exponential for the TPU kernels.
+"""Arithmetic helpers for the level bodies.
 
-The CLOUDSC2 level body is VPU-op-bound with ~11 exponentials per
-level-column (saturation pair, dqs/dT, detrainment, 5 autoconversion, 2
-cuadjtqs iterations) — the largest single op-budget item.  ``fast_exp``
-evaluates exp(x) for float32 as ``2^k * exp(r)`` with a Cody-Waite range
-reduction (k = rint(x*log2e), r = x - k*ln2 split in two constants so the
-reduction is exact in f32) and a degree-7 Taylor polynomial on
-|r| <= ln2/2, then scales by 2^k through exponent-bit assembly.  Maximum
-relative error ~2-3 f32 ulps over the scheme's argument range (verified in
-``tests/test_nonlinear.py::test_fast_exp_faithful``), i.e. indistinguishable
-from the platform exp at the f32 validation gates.
-
-Cost: ~15 single-pass VPU ops (mul, rint, 2 FMA reduction, 7 FMA poly,
-int convert/add/shift, bitcast, mul) — profitable only if the platform's
-exp lowering is longer; see ``benchmarks/microbench_ops.py`` for the
-measured per-op costs that gate its use.
-
-float64 inputs fall through to ``jnp.exp`` (the f64 oracle path must stay
-on the platform exp).
+* :func:`fmask` / :func:`sel0` — the two forms of branch predication
+  selected by ``Constants.MASK_SELECT`` (a vector select, or a multiply by
+  a float mask).
+* :func:`fast_exp` — a faithful float32 exponential evaluated as
+  ``2^k * exp(r)`` with a Cody-Waite range reduction (k = rint(x*log2e),
+  r = x - k*ln2 split in two constants so the reduction is exact in f32)
+  and a degree-7 Taylor polynomial on |r| <= ln2/2, scaled by 2^k through
+  exponent-bit assembly.  Maximum relative error ~2-3 f32 ulps over the
+  scheme's argument range (``tests/test_nonlinear.py::
+  test_fast_exp_faithful``).  No level body calls it; float64 inputs fall
+  through to ``jnp.exp``.
 """
 from __future__ import annotations
 
@@ -28,52 +21,6 @@ import math
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-
-#: Divide-strategy modes for :func:`rcp` / :func:`div` (selected by the
-#: static ``Constants.FAST_DIV`` field):
-#:
-#: * ``"exact"``    — plain division (the default; bit-identical to the
-#:   oracle, valid everywhere including the f64 ``lax.scan`` paths)
-#: * ``"faithful"`` — hardware approximate reciprocal + one Newton step.
-#:   Measured on v5e (``benchmarks/microbench_div.py``): same max relative
-#:   error as the native divide on a 64-deep chain, at 0.81x the cost.
-#: * ``"approx"``   — raw hardware approximate reciprocal, ~6e-6 relative
-#:   error on v5e, 0.17x the divide cost.  Within the driver's f32
-#:   validation gates (2e-4/1e-2) but NOT ulp-comparable to the oracle.
-#:
-#: The non-exact modes use ``pl.reciprocal`` and are therefore only legal
-#: inside a Pallas kernel (or interpret mode); the scan paths must keep the
-#: default.  Non-f32 operands always fall back to exact division.
-DIV_MODES = ("exact", "faithful", "approx")
-
-
-def rcp(x: jnp.ndarray, mode: str = "exact") -> jnp.ndarray:
-    """1/x under the given divide strategy (see :data:`DIV_MODES`).
-
-    Sub-2-D operands always use exact division: the Mosaic lowering of
-    ``pl.reciprocal`` requires a vector type (a scalar operand crashes
-    with ``F32Type ... has no element_type`` — hit by the TL/AD bodies'
-    hoisted per-level scalars), and an approximate reciprocal of a
-    loop-hoisted scalar saves nothing anyway.
-    """
-    if (
-        mode == "exact"
-        or x.dtype != jnp.float32
-        or getattr(x, "ndim", 0) < 2
-    ):
-        return 1.0 / x
-    r = pl.reciprocal(x, approx=True)
-    if mode == "faithful":
-        r = r * (2.0 - x * r)
-    return r
-
-
-def div(a, b: jnp.ndarray, mode: str = "exact") -> jnp.ndarray:
-    """a/b under the given divide strategy (see :data:`DIV_MODES`)."""
-    if mode == "exact" or b.dtype != jnp.float32:
-        return a / b
-    return a * rcp(b, mode)
 
 
 def fmask(p: jnp.ndarray, ref: jnp.ndarray) -> jnp.ndarray:
@@ -82,8 +29,7 @@ def fmask(p: jnp.ndarray, ref: jnp.ndarray) -> jnp.ndarray:
     Used by the ``Constants.MASK_SELECT`` mode of the level bodies: the
     branch-predication pattern ``where(p, x, 0)`` becomes the multiply
     ``x * fmask(p, x)`` — bit-exact for finite ``x`` (``x*1 == x``,
-    ``x*0 == 0``) and one VPU multiply instead of a vector select
-    (measured ~4 op-equivalents on v5e, ``benchmarks/microbench_ops.py``).
+    ``x*0 == 0``), one multiply instead of a select.
     The conversion is paid once per predicate and shared by every select
     on it (the TL body pairs each forward select with a perturbation
     select on the same predicate).

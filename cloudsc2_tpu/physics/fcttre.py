@@ -13,7 +13,6 @@ from __future__ import annotations
 import jax.numpy as jnp
 
 from cloudsc2_tpu.params import Constants
-from cloudsc2_tpu.physics.fastmath import div
 
 
 def foealfa(t: jnp.ndarray, c: Constants) -> jnp.ndarray:
@@ -30,12 +29,12 @@ def foealfcu(t: jnp.ndarray, c: Constants) -> jnp.ndarray:
 
 def foeew_liquid(t: jnp.ndarray, c: Constants) -> jnp.ndarray:
     """Saturation vapour pressure over liquid water."""
-    return c.R2ES * jnp.exp(div(c.R3LES * (t - c.RTT), t - c.R4LES, c.FAST_DIV))
+    return c.R2ES * jnp.exp(c.R3LES * (t - c.RTT) / (t - c.R4LES))
 
 
 def foeew_ice(t: jnp.ndarray, c: Constants) -> jnp.ndarray:
     """Saturation vapour pressure over ice."""
-    return c.R2ES * jnp.exp(div(c.R3IES * (t - c.RTT), t - c.R4IES, c.FAST_DIV))
+    return c.R2ES * jnp.exp(c.R3IES * (t - c.RTT) / (t - c.R4IES))
 
 
 def foeewm(t: jnp.ndarray, c: Constants) -> jnp.ndarray:

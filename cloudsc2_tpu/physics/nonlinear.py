@@ -1,15 +1,15 @@
 
 # Copyright 2026.
 # Licensed under the Apache License, Version 2.0.
-"""CLOUDSC2 nonlinear scheme, TPU-native formulation.
+"""CLOUDSC2 nonlinear scheme, JAX formulation.
 
 JAX re-implementation of the reference ``cloudsc2_nl`` gtscript stencil
 (``src/cloudsc2_gt4py/physics/nonlinear/_stencils/cloudsc2.py:24-399``) and
 its component wrapper (``physics/nonlinear/microphysics.py:43-172``).
 
-Design (TPU-first, not a translation):
+Design (a re-implementation, not a translation):
 
-* Arrays are laid out ``(nlev, ncols)`` — columns on the lane dimension,
+* Arrays are laid out ``(nlev, ncols)`` — columns on the fast axis,
   levels on the scan dimension.  The dummy ``J`` axis of the reference is
   dropped.
 * The strict top-down recurrence of the scheme (rain/snow fluxes, maximum
@@ -42,7 +42,7 @@ import jax.numpy as jnp
 
 from cloudsc2_tpu.params import Constants
 from cloudsc2_tpu.physics import fcttre
-from cloudsc2_tpu.physics.fastmath import div, fmask, rcp, sel0
+from cloudsc2_tpu.physics.fastmath import fmask, sel0
 from cloudsc2_tpu.physics.cuadjtqs import cuadjtqs_nl
 
 Array = jnp.ndarray
@@ -70,40 +70,10 @@ def tropopause_eta(eta: Array, t_fg: Array) -> Array:
     return jnp.where(best >= 0, eta[jnp.maximum(best, 0)], jnp.asarray(0.1, eta.dtype))
 
 
-def tropopause_eta_tiled(eta: Array, t_fg: Array) -> Array:
-    """:func:`tropopause_eta` on tiled-native storage: ``t_fg`` is
-    ``(nj, nlev, 8, wb)`` (level axis 1), ``eta`` is ``(nlev,)``; returns
-    the per-column tropopause eta flattened to global column order
-    ``(ncols,)`` (tile j covers lanes ``j*wb..(j+1)*wb`` of the
-    ``(8, w)`` view, so the flatten is a pure transpose).  One shared
-    definition for the NL/TL/AD tiled wrappers."""
-    nlev = t_fg.shape[1]
-    window = (eta[:-1] > 0.1) & (eta[:-1] < 0.4)
-    mask = window[None, :, None, None] & (t_fg[:, :-1] > t_fg[:, 1:])
-    ks = jnp.arange(nlev - 1, dtype=jnp.int32)[None, :, None, None]
-    best = jnp.max(jnp.where(mask, ks, -1), axis=1)
-    trp = jnp.where(
-        best >= 0, eta[jnp.maximum(best, 0)], jnp.asarray(0.1, t_fg.dtype)
-    )
-    return trp.transpose(1, 0, 2).reshape(-1)
-
-
-def tiled_stream_geometry(aph: Array, lu: Array):
-    """The axis-1 slicing triple shared by every tiled kernel wrapper:
-    ``dp`` (interface-pressure differences), ``aph_s`` (surface pressure,
-    flattened to global column order), ``lu_next`` (one-level lookahead,
-    zero at the bottom).  Works identically for the value fields and
-    their ``_i`` perturbation twins (pass ``aph_i, lu_i``)."""
-    dp = aph[:, 1:] - aph[:, :-1]
-    aph_s = aph[:, -1].transpose(1, 0, 2).reshape(-1)
-    lu_next = jnp.concatenate([lu[:, 1:], jnp.zeros_like(lu[:, :1])], axis=1)
-    return dp, aph_s, lu_next
-
-
 def scalm_profile(eta: Array, c: Constants) -> Array:
     """The scheme's vertical scaling profile ZSCAL*max(eta-0.2, ZEPS1)**0.2
     (reference ``cloudsc2.py:163``) — one definition shared by the scan path
-    and all three Pallas wrappers so a Constants override is honored
+    and the kernel wrappers so a Constants override is honored
     everywhere."""
     return jnp.asarray(c.ZSCAL, eta.dtype) * jnp.maximum(eta - 0.2, c.ZEPS1) ** 0.2
 
@@ -160,24 +130,18 @@ def nl_level_pre(
     constants, and the carry-free half of the autoconversion
     (reference ``cloudsc2.py:102-230, 237-241, 248-263``).
 
-    Operates on arrays of any shape: the Pallas kernel calls it ONCE per
-    ``(kb, 8, wb)`` level block (bulk tensors, no level loop) and only the
-    small carry-dependent tail (:func:`nl_level_post`) runs per level.
     Keys that would shadow a raw level input are suffixed (``lude_s``,
     ``ql_fg``, ``qi_fg``, ``qsat_sups``) so the dict can be merged into
     ``x`` for :func:`nl_level_post`.
     """
-    fd = c.FAST_DIV
     ap = x["ap"]
-    # the fused Pallas path precomputes 1/ap once and shares it with the
-    # in-kernel saturation diagnostic
-    rap = x["rap"] if "rap" in x else rcp(ap, fd)
+    rap = 1.0 / ap
     qsat_in = x["qsat"]
     pre: Dict[str, Any] = {"rap": rap}
 
     # first-guess state (reference :102-104, :113-117).  The raw species /
     # accumulated tendencies / supsat enter the scheme ONLY through these
-    # combines, so the Pallas wrappers stream the precomputed first-guess
+    # combines, so the kernel wrappers stream the precomputed first-guess
     # values (3 streams instead of 7); the combine is bit-identical
     t = x["t_fg"]
     q = x["q2"] if "q2" in x else x["q"] + dt * x["tnd_cml_q"] + x["supsat"]
@@ -192,13 +156,13 @@ def nl_level_pre(
     scalm = x["scalm"]
 
     # thermodynamic coefficients (reference :129-134); one reciprocal of the
-    # moist heat capacity instead of three VPU divides.  The interface
+    # moist heat capacity instead of three divides.  The interface
     # pressures enter the scheme ONLY through their difference, so the
-    # Pallas wrappers stream precomputed ``dp`` (one HBM stream instead of
+    # kernel wrappers stream precomputed ``dp`` (one HBM stream instead of
     # two near-identical aph slices); the subtract here is bit-identical
     dp = x["dp"] if "dp" in x else x["aph1"] - x["aph0"]
     zz = c.RCPD + c.RCPD * c.RVTMP2 * q
-    rzz = rcp(zz, fd)
+    rzz = 1.0 / zz
     lfdcp = c.RLMLT * rzz
     lsdcp = c.RLSTT * rzz
     lvdcp = c.RLVTT * rzz
@@ -208,8 +172,8 @@ def nl_level_pre(
     # One reciprocal each of (t - R4LES) and (t - R4IES) serves the
     # saturation-pressure exponent argument AND the two dqs/dT factors
     # (facw = R5LES/(t-R4LES)^2 = R5LES*rl*rl), replacing three divides.
-    rl = rcp(t - c.R4LES, fd)
-    ri = rcp(t - c.R4IES, fd)
+    rl = 1.0 / (t - c.R4LES)
+    ri = 1.0 / (t - c.R4IES)
     if c.LPHYLIN or c.LDRAIN1D:
         cold = t < c.RTT
         fwat = jnp.where(cold, 0.545 * (jnp.tanh(0.17 * (t - c.RLPTRC)) + 1.0), 1.0)
@@ -230,7 +194,7 @@ def nl_level_pre(
     # ap * fac2 with fac2 = 1/(ap - RETV*foeew) — the reciprocal the
     # subsidence section needs anyway (reference :219) — so the clip case
     # reduces to a compile-time constant and one divide disappears
-    fac2 = rcp(ap - c.RETV * foeew, fd)
+    fac2 = 1.0 / (ap - c.RETV * foeew)
     cor_unclipped = ap * fac2
     if c.LPHYLIN or c.LDRAIN1D:
         cor = jnp.where(
@@ -250,8 +214,8 @@ def nl_level_pre(
     pre["qlim"] = qlim
 
     # critical humidity and ice supersaturation (reference :166-193);
-    # per-column coefficients may arrive precomputed (Pallas path hoists
-    # them out of the level loop via the kernel's col inputs)
+    # per-column coefficients may arrive precomputed (the kernel path
+    # hoists them out of the level loop via the kernel's col inputs)
     coeffs = (
         (x["crh_rh2"], x["crh_deta1"], x["crh_rsq"]) if "crh_rh2" in x else None
     )
@@ -276,7 +240,7 @@ def nl_level_pre(
     # it past 1 and drive clc = 1 - sqrt(ratio) negative; clamp to keep the
     # clc \in [0, 1] invariant under every divide strategy
     mid_ = fmask(mid, qpd) if ms else mid
-    ratio = jnp.minimum(sel0(mid_, div(qpd, denom_safe, fd)), 1.0)
+    ratio = jnp.minimum(sel0(mid_, qpd / denom_safe), 1.0)
     tmp3 = jnp.sqrt(ratio)
     clc_mid = 1.0 - tmp3
     qc_mid = (scalm * qpd + (1.0 - scalm) * qcd) * clc_mid**2.0
@@ -297,29 +261,29 @@ def nl_level_pre(
     )
 
     # convective detrainment (reference :209-215)
-    gdp = div(c.RG, dp, fd)
+    gdp = c.RG / dp
     lude = dt * x["lude"] * gdp
     lu1 = x["lu_next"]
     lo1 = (lude >= c.RLMIN) & (lu1 >= c.ZEPS2)
     lo1_ = fmask(lo1, lude) if ms else lo1
     lu1_safe = jnp.where(lo1, lu1, 1.0)
-    tmp2 = jnp.exp(div(-lude, lu1_safe, fd))
+    tmp2 = jnp.exp(-lude / lu1_safe)
     clc = clc + sel0(lo1_, (1.0 - clc) * (1.0 - tmp2))
     qc = qc + sel0(lo1_, lude)
     pre.update(gdp=gdp, lude_s=lude, lo1=lo1, lu1_safe=lu1_safe, tmp2=tmp2, clc=clc, qc2=qc)
 
     # compensating subsidence (reference :217-224); fac4 = 1/rho = RD*t/ap
     # computed without a third divide; fac2 was already formed for cor above
-    fac1 = rcp(c.RD * t, fd)
+    fac1 = 1.0 / (c.RD * t)
     rho = ap * fac1
     rodqsdp = -rho * qsat_in * fac2
     ldcp = fwat * lvdcp + (1.0 - fwat) * lsdcp
-    fac3 = rcp(1.0 + ldcp * dqsdtemp, fd)
+    fac3 = 1.0 / (1.0 + ldcp * dqsdtemp)
     dtdzmo = c.RG * (1.0 / c.RCPD - ldcp * rodqsdp) * fac3
     dqsdz = dqsdtemp * dtdzmo - c.RG * rodqsdp
     fac4 = c.RD * t * rap
     # the convective mass fluxes enter the scheme ONLY through their sum
-    # (reference :217-224): the Pallas wrappers stream one precomputed
+    # (reference :217-224): the kernel wrappers stream one precomputed
     # ``mf`` (bit-identical add) instead of the two raw fields
     mf = x["mf"] if "mf" in x else x["mfu"] + x["mfd"]
     sub = dt * dqsdz * mf * fac4
@@ -366,7 +330,7 @@ def nl_level_pre(
     # static crit thresholds divide at compile time
     act_ = fmask(act, clc) if ms else act
     clc_safe = jnp.where(act, clc, 1.0)
-    rclc = rcp(clc_safe, fd)
+    rclc = 1.0 / clc_safe
     cldl = qlwc * rclc
     ltmp1 = jnp.exp(-(cldl * cldl * (1.0 / (lcrit * lcrit))))
     dl = ckcodtl * (1.0 - ltmp1)
@@ -391,8 +355,8 @@ def nl_level_pre(
     if c.LEVAPLS2 or c.LDRAIN1D:
         # carry-free factors of the precipitation evaporation (reference
         # :295, :305)
-        pre["sqr"] = jnp.sqrt(div(ap, aph_s, fd))
-        pre["dtgdp"] = div(dt * c.RG, dp, fd)
+        pre["sqr"] = jnp.sqrt(ap / aph_s)
+        pre["dtgdp"] = dt * c.RG / dp
     return pre
 
 
@@ -408,15 +372,8 @@ def nl_level_post(
     saturation-adjustment clipping (reference ``cloudsc2.py:232-246,
     264-399``).
 
-    Accepts a *reduced* ``xp`` (the Pallas ``xla_pre`` tail kernel streams
-    only the exp/divide-expensive phase-A values through HBM): ``fwat``,
-    ``lvdcp``/``lsdcp``, ``rcons``, ``itmp11``, ``act`` and ``qlim`` are
-    recomputed here — with the exact expression order of
-    :func:`nl_level_pre`, so the recompute is bit-identical — whenever the
-    key is absent.
     """
     rfl, sfl, covptot = carry
-    fd = c.FAST_DIV
     ms = c.MASK_SELECT
     cons2 = 1.0 / (c.RG * dt)
     ckcodti = 5.0 * c.RKCONV * dt
@@ -427,28 +384,13 @@ def nl_level_post(
     clc = xp["clc"]
     gdp = xp["gdp"]
     dp = xp["dp"]
-    if "fwat" in xp:
-        fwat = xp["fwat"]
-    elif c.LPHYLIN or c.LDRAIN1D:
-        fwat = jnp.where(
-            t < c.RTT, 0.545 * (jnp.tanh(0.17 * (t - c.RLPTRC)) + 1.0), 1.0
-        )
-    else:
-        fwat = fcttre.foealfa(t, c)
-    if "lvdcp" in xp:
-        lvdcp, lsdcp = xp["lvdcp"], xp["lsdcp"]
-        rcons = xp["rcons"]
-    else:
-        zz = c.RCPD + c.RCPD * c.RVTMP2 * xp["q2"]
-        rzz = rcp(zz, fd)
-        lfdcp = c.RLMLT * rzz
-        lvdcp = c.RLVTT * rzz
-        lsdcp = c.RLSTT * rzz
-        rcons = dt * gdp * lfdcp
+    fwat = xp["fwat"]
+    lvdcp, lsdcp = xp["lvdcp"], xp["lsdcp"]
+    rcons = xp["rcons"]
     condl, condi = xp["condl1"], xp["condi1"]
     qiwc = xp["qiwc1"]
     prr = xp["prr"]
-    act = xp["act"] if "act" in xp else clc > c.ZEPS2
+    act = xp["act"]
 
     # maximum precipitation overlap (reference :232-235)
     covptot_in = covptot
@@ -468,12 +410,7 @@ def nl_level_post(
     aux.update(melt=melt, snmlt=snmlt, t_melt=t)
 
     # melt-temperature half of the snow autoconversion (reference :264-272)
-    if "itmp11" in xp:
-        itmp11 = xp["itmp11"]
-    else:
-        icrit = 0.0001 if (c.LEVAPLS2 or c.LDRAIN1D) else 2.0 * c.RCLCRIT
-        cldi = xp["cldi"]
-        itmp11 = jnp.exp(-(cldi * cldi * (1.0 / (icrit * icrit))))
+    itmp11 = xp["itmp11"]
     itmp12 = jnp.exp(0.025 * (t - c.RTT))
     di = ckcodti * itmp12 * (1.0 - itmp11)
     itmp2 = jnp.exp(-di)
@@ -499,26 +436,26 @@ def nl_level_post(
     aux["prtot"] = prtot
     if c.LEVAPLS2 or c.LDRAIN1D:
         qsat_in = xp["qsat"]
-        qlim = xp["qlim"] if "qlim" in xp else jnp.minimum(xp["q2"], qsat_in)
+        qlim = xp["qlim"]
         eact = (prtot > c.ZEPS2) & (covpclr > c.ZEPS2)
         covptot_safe = jnp.where(eact, covptot, 1.0)
         covpclr_safe = jnp.where(eact, covpclr, 1.0)
-        preclr1 = div(prtot * covpclr, covptot_safe, fd)
+        preclr1 = prtot * covpclr / covptot_safe
         clcc = jnp.where(eact, 1.0 - clc, 1.0)
-        qe = qsat_in - div((qsat_in - qlim) * covpclr, clcc**2.0, fd)
+        qe = qsat_in - ((qsat_in - qlim) * covpclr / clcc ** 2.0)
         sqr = xp["sqr"]
-        barg = jnp.where(eact, div(sqr / 0.00509 * preclr1, covpclr_safe, fd), 1.0)
+        barg = jnp.where(eact, sqr / 0.00509 * preclr1 / covpclr_safe, 1.0)
         beta = c.RG * c.RPECONS * barg**0.5777
-        b = div(dt * beta * (qsat_in - qe), 1.0 + dt * beta * xp["corqs"], fd)
+        b = dt * beta * (qsat_in - qe) / (1.0 + dt * beta * xp["corqs"])
         dtgdp = xp["dtgdp"]
-        dpr1 = div(covpclr * b, dtgdp, fd)
+        dpr1 = covpclr * b / dtgdp
         dpr = jnp.where(eact, jnp.minimum(dpr1, preclr1), 0.0)
         preclr = preclr1 - dpr
         covptot = jnp.where(eact & (preclr <= 0.0), clc, covptot)
         covptot_out = jnp.where(eact, covptot, 0.0)
         prtot_safe = jnp.where(eact, prtot, 1.0)
-        evapr = jnp.where(eact, div(dpr * rfln, prtot_safe, fd), 0.0)
-        evaps = jnp.where(eact, div(dpr * sfln, prtot_safe, fd), 0.0)
+        evapr = jnp.where(eact, dpr * rfln / prtot_safe, 0.0)
+        evaps = jnp.where(eact, dpr * sfln / prtot_safe, 0.0)
         rfln = rfln - evapr
         sfln = sfln - evaps
         aux.update(
@@ -549,7 +486,7 @@ def nl_level_post(
     aux.update(dqdt=dqdt, dtdt=dtdt, t3=t3, qold1=qold1)
 
     # saturation-adjustment clipping (reference :347)
-    t, q = cuadjtqs_nl(xp["ap"], t3, q, c, rap=xp.get("rap"))
+    t, q = cuadjtqs_nl(xp["ap"], t3, q, c, rap=xp["rap"])
     aux.update(t_adj=t, q_adj=q)
 
     # post-clipping rain fraction and freezing (reference :349-364).
@@ -591,16 +528,13 @@ def nl_level_post(
     outs = {
         "tnd_t": tnd_t,
         "tnd_q": tnd_q,
+        "tnd_ql": xp["tnd_ql"],  # fully determined by phase A
         "tnd_qi": tnd_qi,
         "clc": clc,
         "covptot": covptot_out,
         "fplsl": rfln,
         "fplsn": sfln,
     }
-    if "tnd_ql" in xp:
-        # passthrough from phase A; the xla_pre tail kernel emits it from
-        # XLA instead of streaming it through the kernel
-        outs["tnd_ql"] = xp["tnd_ql"]
     return NLCarry(rfln, sfln, covptot), outs, aux
 
 
@@ -620,9 +554,7 @@ def nl_level(
 
     Composed from the carry-independent :func:`nl_level_pre` (phase A) and
     the carry-dependent :func:`nl_level_post` (phase B) — a pure statement
-    reordering of the reference level body, split so the Pallas kernel can
-    evaluate phase A block-vectorized over all levels of a block while only
-    phase B runs in the sequential level loop.
+    reordering of the reference level body.
 
     Returns ``(carry_out, outs, aux)``; ``aux`` carries every intermediate
     of both phases (debugging / oracle comparisons).

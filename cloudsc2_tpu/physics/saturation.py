@@ -18,7 +18,6 @@ import jax.numpy as jnp
 
 from cloudsc2_tpu.params import Constants
 from cloudsc2_tpu.physics import fcttre
-from cloudsc2_tpu.physics.fastmath import div
 
 
 @partial(jax.jit, static_argnames=("kflag", "lphylin", "c"))
@@ -29,7 +28,6 @@ def saturation(
     kflag: int = 1,
     lphylin: bool = True,
     c: Constants,
-    rap: jnp.ndarray | None = None,
 ) -> jnp.ndarray:
     """Diagnose ``qsat`` from pressure ``ap`` and temperature ``t``.
 
@@ -37,10 +35,6 @@ def saturation(
     saturation pressure blends liquid/ice with the ``foealfa`` weight and the
     ratio is clipped at ``QMAX``; otherwise ``foeewm``/``foeewmcu`` is chosen
     by ``KFLAG``.  ``QMAX = ZQMAX = 0.5`` (component ``saturation.py:53``).
-
-    ``rap`` optionally supplies a precomputed ``1/ap`` so the fused Pallas
-    path (saturation inside the NL kernel) shares the reciprocal the NL
-    level body needs anyway.
 
     Note the two esat exponentials here cannot be reused for the NL body's
     ``foeew``: saturation is evaluated at the state temperature while the
@@ -53,7 +47,6 @@ def saturation(
         ew = alfa * fcttre.foeew_liquid(t, c) + (1.0 - alfa) * fcttre.foeew_ice(t, c)
     else:
         ew = fcttre.foeewmcu(t, c) if kflag == 1 else fcttre.foeewm(t, c)
-    # default path divides (bit-identical to the scalar oracle); the fused
-    # kernel passes rap and trades the divide for a multiply (~1 ulp)
-    qs = jnp.minimum(div(ew, ap, c.FAST_DIV) if rap is None else ew * rap, qmax)
-    return div(qs, 1.0 - c.RETV * qs, c.FAST_DIV)
+    # divides (bit-identical to the scalar oracle)
+    qs = jnp.minimum(ew / ap, qmax)
+    return qs / (1.0 - c.RETV * qs)

@@ -1,7 +1,7 @@
 
 # Copyright 2026.
 # Licensed under the Apache License, Version 2.0.
-"""CLOUDSC2 tangent-linear scheme, TPU-native formulation.
+"""CLOUDSC2 tangent-linear scheme, JAX formulation.
 
 JAX re-implementation of the reference ``cloudsc2_tl`` gtscript stencil
 (``src/cloudsc2_gt4py/physics/tangent_linear/_stencils/cloudsc2.py:23-774``)
@@ -36,7 +36,7 @@ import jax.numpy as jnp
 
 from cloudsc2_tpu.params import Constants
 from cloudsc2_tpu.physics.cuadjtqs import cuadjtqs_tl
-from cloudsc2_tpu.physics.fastmath import div, fmask, rcp, sel0
+from cloudsc2_tpu.physics.fastmath import fmask, sel0
 from cloudsc2_tpu.physics.nonlinear import critical_rh, prepare_level_inputs, tropopause_eta
 
 Array = jnp.ndarray
@@ -66,12 +66,9 @@ def tl_level_pre(
     the liquid autoconversion and the melt-free half of the ice
     autoconversion (reference ``tangent_linear/_stencils/cloudsc2.py:
     137-386, 399-412, 429-471``).  All three in-loop LREGCL switches live
-    here.  Shape-polymorphic along the level axis so the Pallas kernel can
-    evaluate whole ``(kb, 8, wb)`` blocks at once.  Keys that would shadow
-    a raw level input are suffixed (``lude_s``, ``ql_fg``, ``qi_fg``,
+    here.  Keys that would shadow a raw level input are suffixed (``lude_s``, ``ql_fg``, ``qi_fg``,
     ``qsat_sups``).
     """
-    fd = c.FAST_DIV
     ap = x["ap"]
     ap_i = x["ap_i"]
     qsat_in = x["qsat"]
@@ -80,7 +77,7 @@ def tl_level_pre(
     # first-guess state and perturbations (reference :137-156)
     t = x["t_fg"]
     # the raw species / accumulated tendencies / supsat (and their
-    # perturbations) enter ONLY through these combines, so the Pallas
+    # perturbations) enter ONLY through these combines, so the kernel
     # wrapper streams the precomputed first-guess values (7 streams
     # instead of 16); the combine is bit-identical either way
     t_i = x["t_fg_i"] if "t_fg_i" in x else x["t_i"] + dt * x["tnd_cml_t_i"]
@@ -105,7 +102,7 @@ def tl_level_pre(
     scalm = x["scalm"]
 
     # thermodynamic coefficients, inverse form (reference :170-180)
-    # interface pressures enter only through their difference; the Pallas
+    # interface pressures enter only through their difference; the kernel
     # wrapper streams precomputed dp/dp_i (see physics/nonlinear.py)
     dp = x["dp"] if "dp" in x else x["aph1"] - x["aph0"]
     dp_i = x["dp_i"] if "dp_i" in x else x["aph1_i"] - x["aph0_i"]
@@ -114,7 +111,7 @@ def tl_level_pre(
     # same strength reduction as nl_level_pre, exact algebra, ~1 ulp)
     zd = c.RCPD + c.RCPD * c.RVTMP2 * q
     zd_i = c.RCPD * c.RVTMP2 * q_i
-    zz = rcp(zd, fd)
+    zz = 1.0 / zd
     zz_i = -zd_i * (zz * zz)
     lfdcp = c.RLMLT * zz
     lfdcp_i = c.RLMLT * zz_i
@@ -127,7 +124,7 @@ def tl_level_pre(
     ms = c.MASK_SELECT
     cold = t < c.RTT
     # sech^2 = 1 - tanh^2 (the reference's 1/cosh^2, :196; tanh-based so the
-    # Pallas/Mosaic lowering needs no cosh primitive)
+    # kernel lowering needs no cosh primitive)
     th = jnp.tanh(0.17 * (t - c.RLPTRC))
     fwat = jnp.where(cold, 0.545 * (th + 1.0), 1.0)
     fwat_i = sel0(fmask(cold, t) if ms else cold, 0.545 * 0.17 * t_i * (1.0 - th * th))
@@ -138,10 +135,10 @@ def tl_level_pre(
     # (same sharing as nl_level_pre: facw = R5LES*rl^2, facw_i = -2*R5LES*
     # t_i*rl^3), and one reciprocal of ap serves esdp and its perturbation
     # — 10 divides fold into 3 reciprocals
-    rl = rcp(t - c.R4LES, fd)
-    ri = rcp(t - c.R4IES, fd)
+    rl = 1.0 / (t - c.R4LES)
+    ri = 1.0 / (t - c.R4IES)
     rz4es = jnp.where(cold, ri, rl)
-    rap = rcp(ap, fd)
+    rap = 1.0 / ap
     foeew = c.R2ES * jnp.exp(z3es * (t - c.RTT) * rz4es)
     foeew_i = z3es * (c.RTT - z4es) * t_i * foeew * (rz4es * rz4es)
     esdp = foeew * rap
@@ -158,7 +155,7 @@ def tl_level_pre(
     faci_i = -2.0 * c.R5IES * t_i * (ri * ri * ri)
     fac = fwat * facw + (1.0 - fwat) * faci
     fac_i = fwat_i * (facw - faci) + fwat * facw_i + (1.0 - fwat) * faci_i
-    cor = rcp(1.0 - c.RETV * esdp, fd)
+    cor = 1.0 / (1.0 - c.RETV * esdp)
     cor_i = c.RETV * esdp_i * (cor * cor)
     dqsdtemp = fac * cor * qsat_in
     dqsdtemp_i = fac_i * cor * qsat_in + fac * cor_i * qsat_in + fac * cor * qsat_in_i
@@ -198,12 +195,12 @@ def tl_level_pre(
     denom_safe = jnp.where(mid, denom, 1.0)
     # one reciprocal of the safe denominator serves the ratio and the
     # quotient-rule term of its perturbation
-    rdenom = rcp(denom_safe, fd)
+    rdenom = 1.0 / denom_safe
     mid_ = fmask(mid, qpd) if ms else mid
     ratio = sel0(mid_, qpd * rdenom)
     tmp1 = jnp.sqrt(ratio)
     clc_mid = 1.0 - tmp1
-    # 1/tmp1 as a single rsqrt of the guarded ratio (one VPU op instead of
+    # 1/tmp1 as a single rsqrt of the guarded ratio (one op instead of
     # sqrt + divide; the guard value 1.0 keeps inactive lanes finite)
     rtmp1 = jax.lax.rsqrt(jnp.where(mid, ratio, 1.0))
     clc_mid_i = (
@@ -215,15 +212,12 @@ def tl_level_pre(
     if c.LREGCL:
         # regularization of the cloud-fraction perturbation (reference :294-301)
         qcd_safe = jnp.where(mid, qcd, 1.0)
-        rat = div(qpd, qcd_safe, fd)
+        rat = qpd / qcd_safe
         yyy = jnp.minimum(
             0.3,
-            div(
-                3.5
-                * jnp.sqrt(jnp.maximum(rat * (1.0 - scalm * (1.0 - rat)) ** 3.0, 0.0)),
-                1.0 - scalm,
-                fd,
-            ),
+            3.5
+            * jnp.sqrt(jnp.maximum(rat * (1.0 - scalm * (1.0 - rat)) ** 3.0, 0.0))
+            / (1.0 - scalm),
         )
         clc_mid_i = clc_mid_i * yyy
     qc_mid = (scalm * qpd + (1.0 - scalm) * qcd) * clc_mid**2.0
@@ -249,7 +243,7 @@ def tl_level_pre(
 
     # convective component (reference :308-325); one reciprocal each of dp
     # and lu1_safe serves value + perturbation (5 divides fold into 2)
-    rdp = rcp(dp, fd)
+    rdp = 1.0 / dp
     gdp = c.RG * rdp
     gdp_i = -c.RG * dp_i * (rdp * rdp)
     lude = dt * x["lude"] * gdp
@@ -258,7 +252,7 @@ def tl_level_pre(
     lu1_i = x["lu_next_i"]
     lo1 = (lude >= c.RLMIN) & (lu1 >= c.ZEPS2)
     lu1_safe = jnp.where(lo1, lu1, 1.0)
-    rlu1 = rcp(lu1_safe, fd)
+    rlu1 = 1.0 / lu1_safe
     tmp2 = jnp.exp(-lude * rlu1)
     clc_i_conv = -clc_i * (1.0 - tmp2) + (1.0 - clc) * tmp2 * (
         (lude_i - lude * lu1_i * rlu1) * rlu1
@@ -272,10 +266,10 @@ def tl_level_pre(
     # compensating subsidence (reference :327-373); 1/t = RD*fac1 and
     # 1/rho = RD*t*rap (nl_level_pre's fac4), so the rho_i quotient term
     # and the two sub divides need no further division
-    fac1 = rcp(c.RD * t, fd)
+    fac1 = 1.0 / (c.RD * t)
     rho = ap * fac1
     rho_i = (ap_i - ap * t_i * (c.RD * fac1)) * fac1
-    fac2 = rcp(ap - c.RETV * foeew, fd)
+    fac2 = 1.0 / (ap - c.RETV * foeew)
     rodqsdp = -rho * qsat_in * fac2
     rodqsdp_i = (
         -rho_i * qsat_in
@@ -284,7 +278,7 @@ def tl_level_pre(
     ) * fac2
     ldcp = fwat * lvdcp + (1.0 - fwat) * lsdcp
     ldcp_i = fwat_i * (lvdcp - lsdcp) + fwat * lvdcp_i + (1.0 - fwat) * lsdcp_i
-    fac3 = rcp(1.0 + ldcp * dqsdtemp, fd)
+    fac3 = 1.0 / (1.0 + ldcp * dqsdtemp)
     dtdzmo = c.RG * (1.0 / c.RCPD - ldcp * rodqsdp) * fac3
     dtdzmo_i = (
         -(
@@ -298,7 +292,7 @@ def tl_level_pre(
 
     fac4 = c.RD * t * rap  # 1/rho, division-free (nl_level_pre's fac4)
     # mass fluxes enter only as their sum (value and perturbation): one
-    # ``mf``/``mf_i`` stream pair in the Pallas wrappers
+    # ``mf``/``mf_i`` stream pair in the kernel wrappers
     mf = x["mf"] if "mf" in x else x["mfu"] + x["mfd"]
     mf_i = x["mf_i"] if "mf_i" in x else x["mfu_i"] + x["mfd_i"]
     sub = dt * dqsdz * mf * fac4
@@ -354,7 +348,7 @@ def tl_level_pre(
     # one reciprocal of the cloud fraction serves both species' in-cloud
     # contents AND their perturbations (6 divides fold into 1; quotient
     # rule via the shared reciprocal: cldl_i = (qlwc_i - cldl*clc_i)/clc)
-    rclc = rcp(clc_safe, fd)
+    rclc = 1.0 / clc_safe
 
     cldl = qlwc * rclc
     cldl_i = (qlwc_i - cldl * clc_i) * rclc
@@ -394,9 +388,9 @@ def tl_level_pre(
         pre["qlim_i"] = qlim_i
         pre["corqs"] = corqs
         pre["corqs_i"] = corqs_i
-        pre["tmp6"] = jnp.sqrt(div(ap, aph_s, fd))
-        pre["dtgdp"] = div(dt * c.RG, dp, fd)
-        pre["dtgdp_i"] = div(-dt * c.RG * dp_i, dp**2.0, fd)
+        pre["tmp6"] = jnp.sqrt(ap / aph_s)
+        pre["dtgdp"] = dt * c.RG / dp
+        pre["dtgdp_i"] = -dt * c.RG * dp_i / dp ** 2.0
     return pre
 
 
@@ -418,7 +412,6 @@ def tl_level_post(
     388-397, 413-427, 472-753``).
     """
     rfl, sfl, covptot, rfl_i, sfl_i, covptot_i = carry
-    fd = c.FAST_DIV
     ckcodti = 5.0 * c.RKCONV * dt
     ckcodtia = ckcodti / 100.0
     cons2 = 1.0 / (c.RG * dt)
@@ -512,33 +505,32 @@ def tl_level_post(
         covptot_safe = jnp.where(eact, covptot, 1.0)
         covpclr_safe = jnp.where(eact, covpclr, 1.0)
         prtot_safe = jnp.where(eact, prtot, 1.0)
-        preclr = div(prtot * covpclr, covptot_safe, fd)
+        preclr = prtot * covpclr / covptot_safe
         preclr_i = (
-            div(prtot_i * covpclr + prtot * covpclr_i, covptot_safe, fd)
-            - div(prtot * covpclr * covptot_i, covptot_safe**2.0, fd)
+            ((prtot_i * covpclr + prtot * covpclr_i) / covptot_safe)
+            - (prtot * covpclr * covptot_i / covptot_safe ** 2.0)
         )
         clcc = jnp.where(eact, 1.0 - clc, 1.0)
         qlim, qlim_i = xp["qlim"], xp["qlim_i"]
         corqs, corqs_i = xp["corqs"], xp["corqs_i"]
-        qe = qsat_in - div((qsat_in - qlim) * covpclr, clcc**2.0, fd)
+        qe = qsat_in - ((qsat_in - qlim) * covpclr / clcc ** 2.0)
         qe_i = (
             qsat_in_i
-            - div(
-                qsat_in_i * covpclr - qlim_i * covpclr + (qsat_in - qlim) * covpclr_i,
-                clcc**2.0,
-                fd,
+            - (
+                (qsat_in_i * covpclr - qlim_i * covpclr + (qsat_in - qlim) * covpclr_i)
+                / clcc ** 2.0
             )
-            - div(2.0 * (qsat_in - qlim) * covpclr * clc_i, clcc**3.0, fd)
+            - (2.0 * (qsat_in - qlim) * covpclr * clc_i / clcc ** 3.0)
         )
         tmp6 = xp["tmp6"]
         preclr_safe = jnp.where(eact & (preclr > 0.0), preclr, 1.0)
-        beta = c.RG * c.RPECONS * div(tmp6 * preclr_safe, 0.00509 * covpclr_safe, fd) ** 0.5777
+        beta = c.RG * c.RPECONS * (tmp6 * preclr_safe / (0.00509 * covpclr_safe)) ** 0.5777
         beta_i = (
             0.5777
             * c.RG
             * c.RPECONS
             / 0.00509
-            * div(0.00509 * covpclr_safe, tmp6 * preclr_safe, fd) ** 0.4223
+            * (0.00509 * covpclr_safe / (tmp6 * preclr_safe)) ** 0.4223
             * (
                 (
                     tmp6 * preclr_i
@@ -551,29 +543,30 @@ def tl_level_post(
                     # out by default (LEVAPLS2=False) and never validates;
                     # we keep the exact form, pinned by the jax.jvp
                     # cross-check with LEVAPLS2=True.
-                    + div(0.5 * preclr_safe * ap_i, tmp6 * aph_s, fd)
-                    - div(0.5 * preclr_safe * tmp6 * aph_s_i, aph_s, fd)
+                    + (0.5 * preclr_safe * ap_i / (tmp6 * aph_s))
+                    - (0.5 * preclr_safe * tmp6 * aph_s_i / aph_s)
                 )
-                * rcp(covpclr_safe, fd)
-                - div(tmp6 * preclr_safe * covpclr_i, covpclr_safe**2.0, fd)
+                * (1.0 / covpclr_safe)
+                - (tmp6 * preclr_safe * covpclr_i / covpclr_safe ** 2.0)
             )
         )
-        b = div(dt * beta * (qsat_in - qe), 1.0 + dt * beta * corqs, fd)
+        b = dt * beta * (qsat_in - qe) / (1.0 + dt * beta * corqs)
         # quotient rule for b = u/v, u = dt*beta*(qsat-qe),
         # v = 1 + dt*beta*corqs: the second term is u*v_i/v^2 = dt*b*(...)/v.
         # The reference TL writes dt**2*b*(...)/v
         # (tangent_linear/_stencils/cloudsc2.py:579-581) — an extra factor of
         # dt (~600x) in a branch it compiles out by default; we keep the
         # exact derivative, pinned by the jax.jvp cross-check.
-        b_i = div(
-            dt * (beta_i * (qsat_in - qe) + beta * (qsat_in_i - qe_i)),
-            1.0 + dt * beta * corqs,
-            fd,
-        ) - div(dt * b * (beta_i * corqs + beta * corqs_i), 1.0 + dt * beta * corqs, fd)
+        b_i = (
+            dt * (beta_i * (qsat_in - qe) + beta * (qsat_in_i - qe_i))
+            / (1.0 + dt * beta * corqs)
+        ) - (
+            dt * b * (beta_i * corqs + beta * corqs_i) / (1.0 + dt * beta * corqs)
+        )
         dtgdp = xp["dtgdp"]
         dtgdp_i = xp["dtgdp_i"]
-        dpr = div(covpclr * b, dtgdp, fd)
-        dpr_i = div(covpclr_i * b + covpclr * b_i, dtgdp, fd) - div(covpclr * b * dtgdp_i, dtgdp**2.0, fd)
+        dpr = covpclr * b / dtgdp
+        dpr_i = ((covpclr_i * b + covpclr * b_i) / dtgdp) - (covpclr * b * dtgdp_i / dtgdp ** 2.0)
         big = dpr > preclr
         dpr = jnp.where(big, preclr, dpr)
         dpr_i = jnp.where(big, preclr_i, dpr_i)
@@ -586,18 +579,20 @@ def tl_level_post(
         covptot_i = jnp.where(drained, clc_i, covptot_i)
         covptot_out = jnp.where(eact, covptot, 0.0)
         covptot_out_i = jnp.where(eact, covptot_i, 0.0)
-        evapr = jnp.where(eact, div(dpr * rfln, prtot_safe, fd), 0.0)
+        evapr = jnp.where(eact, dpr * rfln / prtot_safe, 0.0)
         evapr_i = jnp.where(
             eact,
-            div(dpr_i * rfln + dpr * rfln_i, prtot_safe, fd) - div(dpr * rfln * prtot_i, prtot_safe**2.0, fd),
+            (dpr_i * rfln + dpr * rfln_i) / prtot_safe
+            - dpr * rfln * prtot_i / prtot_safe ** 2.0,
             0.0,
         )
         rfln = rfln - evapr
         rfln_i = rfln_i - evapr_i
-        evaps = jnp.where(eact, div(dpr * sfln, prtot_safe, fd), 0.0)
+        evaps = jnp.where(eact, dpr * sfln / prtot_safe, 0.0)
         evaps_i = jnp.where(
             eact,
-            div(dpr_i * sfln + dpr * sfln_i, prtot_safe, fd) - div(dpr * sfln * prtot_i, prtot_safe**2.0, fd),
+            (dpr_i * sfln + dpr * sfln_i) / prtot_safe
+            - dpr * sfln * prtot_i / prtot_safe ** 2.0,
             0.0,
         )
         sfln = sfln - evaps
@@ -749,9 +744,7 @@ def tl_level(
 
     Composed from the carry-independent :func:`tl_level_pre` (phase A) and
     the carry-dependent :func:`tl_level_post` (phase B) — a pure statement
-    reordering of the hand-derived TL level body, split so the Pallas
-    kernel can evaluate phase A block-vectorized over all levels of a
-    block while only phase B runs in the sequential level loop.
+    reordering of the hand-derived TL level body.
     """
     pre = tl_level_pre(x, aph_s, trpaus, dt, c)
     return tl_level_post(carry, {**x, **pre}, aph_s, aph_s_i, dt, c)
@@ -799,7 +792,7 @@ def cloudsc2_tl(
     reverse-mode transpose of this scan (the adjoint,
     :mod:`cloudsc2_tpu.physics.adjoint`) stores only the tiny carried state
     per level and regenerates all intermediates during the reverse sweep —
-    the TPU analogue of the reference adjoint's forward-recompute strategy
+    the analogue of the reference adjoint's forward-recompute strategy
     (``adjoint/_stencils/cloudsc2.py:133-476``).
     """
     xs = prepare_tl_level_inputs(state, dt, c)

@@ -7,7 +7,7 @@ The reference validates and converts physical units on every component call
 (sympl DataArrays carry pint units; the external ``ImplicitTendencyComponent``
 strips/converts them against the declared property dicts — SURVEY.md §2.2
 components row, reference usage ``physics/common/saturation.py:33-76``).
-This module is the TPU-native equivalent, sized to the unit set the scheme
+This module is the equivalent here, sized to the unit set the scheme
 actually uses (SI mass/length/time/temperature products): a parser from unit
 strings like ``"kg m^-2 s^-1"`` to a (scale, dimension-exponents) pair, a
 :func:`convert` helper, and the :class:`UnitArray` carrier components accept

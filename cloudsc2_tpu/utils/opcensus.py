@@ -1,21 +1,13 @@
 
 # Copyright 2026.
 # Licensed under the Apache License, Version 2.0.
-"""Static VPU op census of traced physics bodies.
+"""Static op census of traced physics bodies.
 
-Counts jaxpr primitives of one level of a scheme body.  Two uses:
-
-* ``weighted`` totals (``WEIGHTS``: div = 14 measured v5e op-equivalents,
-  ``benchmarks/microbench_div.py``) predict throughput *shifts* from pure
-  code changes without a chip — they overestimate absolute cost because the
-  kernels hide op latency with ILP (measured: FAST_DIV gains only ~1-2%
-  despite divides being ~1/3 of the weighted budget).
-* ``issue`` totals (1 per computational primitive) feed the serial-issue
-  compute roofline in ``bench.py``: the kernels are VPU-issue-bound, so the
-  ceiling is (measured VPU op rate) / (issued ops per column).
-
-Shape-only primitives (broadcasts, converts, reshapes) are excluded from
-both counts — they lower to vector-register plumbing, not VPU issues.
+Counts the jaxpr primitives of one level of a scheme body.  The flop count
+(:func:`flop_count`) is the single source of the reference-schema CSV
+MFLOPS column (:data:`cloudsc2_tpu.utils.output.FLOPS_PER_POINT`).  Shape-
+only primitives (broadcasts, converts, reshapes) are excluded: they move
+no data through an arithmetic unit.
 """
 from __future__ import annotations
 
@@ -24,12 +16,7 @@ from typing import Callable, Counter, Sequence
 
 import jax
 
-#: measured v5e op-equivalents relative to one VPU mul
-#: (benchmarks/microbench_div.py, microbench_ops.py)
-WEIGHTS = {"div": 14.0, "exp": 3.0, "tanh": 6.0, "sqrt": 3.0, "rsqrt": 3.0,
-           "pow": 14.0, "integer_pow": 2.0}
-
-#: metadata/layout primitives that issue no VPU op
+#: metadata/layout primitives that compute nothing
 NON_ISSUING = frozenset({
     "broadcast_in_dim", "convert_element_type", "reshape", "squeeze",
     "slice", "concatenate", "transpose", "copy", "stop_gradient",
@@ -56,7 +43,7 @@ def census(fn: Callable, args: Sequence) -> Counter:
     return counts
 
 
-#: non-arithmetic computational primitives: issued on the VPU but not
+#: non-arithmetic computational primitives: executed, but not
 #: floating-point *operations* in the MFLOPS sense (comparisons, boolean
 #: algebra, selects).  min/max ARE counted as flops (one ALU op on data).
 NON_FLOP = frozenset({
@@ -66,8 +53,8 @@ NON_FLOP = frozenset({
 
 
 def issue_count(counts: Counter) -> int:
-    """VPU-issued ops under the serial-issue model (1 per computational
-    primitive, shape plumbing excluded)."""
+    """Executed ops, one per computational primitive (shape plumbing
+    excluded)."""
     return sum(v for k, v in counts.items() if k not in NON_ISSUING)
 
 
@@ -82,100 +69,16 @@ def flop_count(counts: Counter) -> int:
     )
 
 
-def weighted_count(counts: Counter) -> float:
-    """Measured-op-equivalent total (see WEIGHTS)."""
-    return sum(
-        WEIGHTS.get(k, 1.0) * v for k, v in counts.items() if k not in NON_ISSUING
-    )
-
-
-def _sub_jaxpr(eqn):
-    """The closed sub-jaxpr of a call-like equation, if any."""
-    for key in ("jaxpr", "call_jaxpr", "fun_jaxpr"):
-        sub = eqn.params.get(key)
-        if sub is not None:
-            return getattr(sub, "jaxpr", sub)
-    return None
-
-
-def _weighted_depths(jaxpr, in_depths, lit_depth, weights=None):
-    """Longest weighted dependent chain to each output of ``jaxpr``.
-
-    ``in_depths[i]`` seeds invar *i* (use ``-inf`` to exclude an input from
-    chain sourcing); ``lit_depth`` seeds literals/constvars (``0.0`` for the
-    all-inputs body depth, ``-inf`` when tracing chains from a specific
-    source set).  Non-issuing primitives add zero; call-like equations
-    recurse.  Depth propagation is exact for the flat level bodies this
-    package traces (no scan/while inside one level).  ``weights`` overrides
-    :data:`WEIGHTS` (e.g. measured *latency* weights for the serial model —
-    the defaults are throughput op-equivalents)."""
-    w_tbl = WEIGHTS if weights is None else weights
-    env = {}
-
-    def read(v):
-        if isinstance(v, jax.extend.core.Literal):
-            return lit_depth
-        return env.get(v, lit_depth)
-
-    for var, d in zip(jaxpr.invars, in_depths):
-        env[var] = d
-    for eqn in jaxpr.eqns:
-        dins = [read(v) for v in eqn.invars]
-        base = max(dins) if dins else lit_depth
-        sub = _sub_jaxpr(eqn)
-        if sub is not None and len(sub.invars) == len(eqn.invars):
-            douts = _weighted_depths(sub, dins, lit_depth, weights)
-            for ov, d in zip(eqn.outvars, douts):
-                env[ov] = d
-            continue
-        name = eqn.primitive.name
-        w = 0.0 if name in NON_ISSUING else w_tbl.get(name, 1.0)
-        d = base + w
-        for ov in eqn.outvars:
-            env[ov] = d
-    return [read(v) for v in jaxpr.outvars]
-
-
-def critical_path(fn: Callable, args: Sequence, *, carry_in: int = 0,
-                  carry_out: int = 0, weights=None) -> dict:
-    """Weighted critical-path depths of ``fn(*args)`` (jaxpr DAG depth with
-    the :data:`WEIGHTS` op costs as latency multipliers).
-
-    Returns ``body_depth`` — the longest dependent chain from any input to
-    any output with every input available at t=0 (the per-level serial
-    bound when consecutive levels do NOT overlap, e.g. a rolled loop) — and,
-    when ``carry_in``/``carry_out`` are given, ``carry_depth`` — the longest
-    chain from the first ``carry_in`` flattened inputs to the first
-    ``carry_out`` flattened outputs (the per-level recurrence bound when
-    independent work overlaps perfectly across levels).  The true serial
-    floor of a level scan lies between ``nlev * carry_depth`` and
-    ``nlev * body_depth`` depending on how much cross-level ILP the
-    scheduler extracts.
-    """
-    jaxpr = jax.make_jaxpr(fn)(*args).jaxpr
-    n_in = len(jaxpr.invars)
-    body = _weighted_depths(jaxpr, [0.0] * n_in, 0.0, weights)
-    out = {"body_depth": float(max(body))}
-    if carry_in and carry_out:
-        neg = float("-inf")
-        seeds = [0.0 if i < carry_in else neg for i in range(n_in)]
-        douts = _weighted_depths(jaxpr, seeds, neg, weights)
-        out["carry_depth"] = float(max(douts[:carry_out]))
-    return out
-
-
-def nl_step_ops_per_column(c, dt: float, nlev: int, weights=None) -> dict:
-    """Per-column op budget of the full forward step (saturation + NL),
+def nl_step_ops_per_column(c, dt: float, nlev: int) -> dict:
+    """Per-column op counts of the full forward step (saturation + NL),
     the unit ``bench.py`` times.
 
     Counts one level of :func:`~cloudsc2_tpu.physics.nonlinear.nl_level`
-    (the kernel body, traced on the folded input streams exactly as the
-    Pallas wrapper feeds it) plus one level of the XLA-side saturation, and
-    multiplies by ``nlev``.  The per-column assembly outside the level
-    bodies (first-guess combines, fhpsl/fhpsn scalings, the chain's eps
-    update — ~10 ops per level-column total) is excluded and keeps the
-    ceiling slightly optimistic, which is the correct direction for a
-    roofline denominator.
+    (traced on the folded input streams exactly as the kernel wrapper
+    feeds it) plus one level of the saturation, and multiplies by
+    ``nlev``.  The per-column assembly outside the level bodies
+    (first-guess combines, fhpsl/fhpsn scalings — ~10 ops per level-column)
+    is excluded.
     """
     import jax.numpy as jnp
 
@@ -196,128 +99,7 @@ def nl_step_ops_per_column(c, dt: float, nlev: int, weights=None) -> dict:
         lambda ap, t: saturation(ap, t, kflag=1, lphylin=c.LPHYLIN, c=c),
         (col, col),
     )
-    issue = (issue_count(nl_counts) + issue_count(sat_counts)) * nlev
-    weighted = (weighted_count(nl_counts) + weighted_count(sat_counts)) * nlev
-    flops = (flop_count(nl_counts) + flop_count(sat_counts)) * nlev
-    # serial (latency) chains: the saturation pass is level-parallel XLA
-    # (never on the level scan's dependency chain), so only nl_level counts.
-    # carry = the 3 NLCarry leaves, flattened first in both args and outputs.
-    # ``weights`` lets bench.py pass measured LATENCY weights (the defaults
-    # are throughput op-equivalents, which overstate pipelined div/sqrt on
-    # a dependent chain).
-    paths = critical_path(level_fn, (carry, x), carry_in=3, carry_out=3,
-                          weights=weights)
     return {
-        "issue_ops_per_col": issue,
-        "weighted_ops_per_col": weighted,
-        "flops_per_col": flops,
-        "crit_body_ops_per_col": paths["body_depth"] * nlev,
-        "crit_carry_ops_per_col": paths["carry_depth"] * nlev,
-    }
-
-
-def tl_step_ops_per_column(c, dt: float, nlev: int, weights=None) -> dict:
-    """Per-column op budget of the TL step — the unit ``bench.py``'s
-    ``chain_tl`` times (:func:`cloudsc2_tpu.pallas.tangent_linear.
-    cloudsc2_tl_pallas` alone; saturation/increments run once outside the
-    chain).  Traces one level of :func:`~cloudsc2_tpu.physics.
-    tangent_linear.tl_level` on the folded input streams exactly as the
-    Pallas wrapper feeds it (dp/mf folds, precomputed first-guess combines).
-    Carry = the 6 TLCarry leaves (VERDICT r4 next #2: TL gets the same
-    serial-roofline treatment as NL)."""
-    import jax.numpy as jnp
-
-    from cloudsc2_tpu.physics.tangent_linear import TLCarry, tl_level
-
-    col = jnp.ones((8,), jnp.float32)
-    x = {k: col for k in (
-        "ap", "dp", "lu_next", "lude", "mf", "qsat", "t_fg",
-        "q2", "ql_fg", "qi_fg",
-        "ap_i", "dp_i", "lu_next_i", "lude_i", "mf_i", "qsat_i",
-        "t_fg_i", "q2_i", "ql_fg_i", "qi_fg_i",
-        "crh_rh2", "crh_deta1", "crh_rsq",
-    )}
-    x["eta"] = jnp.float32(0.5)
-    x["scalm"] = jnp.float32(0.1)
-    carry = TLCarry(col, col, col, col, col, col)
-    level_fn = lambda cr, xx: tl_level(  # noqa: E731
-        TLCarry(*cr), xx, col, col, col, dt, c
-    )
-    counts = census(level_fn, (carry, x))
-    paths = critical_path(level_fn, (carry, x), carry_in=6, carry_out=6,
-                          weights=weights)
-    return {
-        "issue_ops_per_col": issue_count(counts) * nlev,
-        "weighted_ops_per_col": weighted_count(counts) * nlev,
-        "flops_per_col": flop_count(counts) * nlev,
-        "crit_body_ops_per_col": paths["body_depth"] * nlev,
-        "crit_carry_ops_per_col": paths["carry_depth"] * nlev,
-    }
-
-
-def ad_step_ops_per_column(c, dt: float, nlev: int, weights=None) -> dict:
-    """Per-column op budget of the AD step — the unit ``chain_ad`` times:
-    the two-kernel pipeline of :func:`cloudsc2_tpu.pallas.adjoint.
-    cloudsc2_ad_pallas` (forward NL trajectory sweep, then the bottom-up
-    reverse sweep whose body is ``jax.vjp`` of the exactly-linear TL level).
-    The two level scans run SEQUENTIALLY (separate ``pallas_call``s), so
-    the serial-latency chains ADD: ``crit_* = nlev * (fwd depth + rev
-    depth)``.  Both bodies are traced on the folded streams exactly as the
-    kernels feed them; the reverse body is the real
-    ``pallas.adjoint._make_rev_body`` (evap per the constants)."""
-    import jax.numpy as jnp
-
-    from cloudsc2_tpu.pallas.adjoint import SEED_NAMES, _make_rev_body
-    from cloudsc2_tpu.physics.nonlinear import NLCarry, nl_level
-
-    evap = bool(c.LEVAPLS2 or c.LDRAIN1D)
-    col = jnp.ones((8,), jnp.float32)
-
-    # --- forward sweep: the NL kernel body on the folded streams ---
-    xf = {k: col for k in (
-        "ap", "dp", "lu_next", "lude", "mf", "q2", "ql_fg", "qi_fg",
-        "qsat", "t_fg", "crh_rh2", "crh_deta1", "crh_rsq",
-    )}
-    xf["eta"] = jnp.float32(0.5)
-    xf["scalm"] = jnp.float32(0.1)
-    f_carry = NLCarry(col, col, col)
-    fwd_fn = lambda cr, xx: nl_level(NLCarry(*cr), xx, col, col, dt, c)[:2]  # noqa: E731
-    f_counts = census(fwd_fn, (f_carry, xf))
-    f_paths = critical_path(fwd_fn, (f_carry, xf), carry_in=3, carry_out=3,
-                            weights=weights)
-
-    # --- reverse sweep: vjp-of-TL body, exactly as the kernel builds it ---
-    rev_body = _make_rev_body(dt, c, evap)
-    xr = dict(xf)
-    del xr["crh_rh2"], xr["crh_deta1"], xr["crh_rsq"]
-    xr.update({"s_" + n: col for n in SEED_NAMES})
-    if not evap:
-        del xr["s_covptot_i"]
-    xr["c_rfl"] = col
-    xr["c_sfl"] = col
-    if evap:
-        xr["c_cov"] = col
-    cold = {k: col for k in ("crh_rh2", "crh_deta1", "crh_rsq", "trpaus",
-                             "aph_s")}
-    r_carry = (col, col, col)
-    rev_fn = lambda cr, xx: rev_body(cr, xx, cold, None)  # noqa: E731
-    r_counts = census(rev_fn, (r_carry, xr))
-    r_paths = critical_path(rev_fn, (r_carry, xr), carry_in=3, carry_out=3,
-                            weights=weights)
-
-    return {
-        "issue_ops_per_col": (issue_count(f_counts) + issue_count(r_counts))
-        * nlev,
-        "weighted_ops_per_col": (
-            weighted_count(f_counts) + weighted_count(r_counts)
-        ) * nlev,
-        "flops_per_col": (flop_count(f_counts) + flop_count(r_counts)) * nlev,
-        "crit_body_ops_per_col": (
-            f_paths["body_depth"] + r_paths["body_depth"]
-        ) * nlev,
-        "crit_carry_ops_per_col": (
-            f_paths["carry_depth"] + r_paths["carry_depth"]
-        ) * nlev,
-        "fwd_crit_body_per_level": f_paths["body_depth"],
-        "rev_crit_body_per_level": r_paths["body_depth"],
+        "issue_ops_per_col": (issue_count(nl_counts) + issue_count(sat_counts)) * nlev,
+        "flops_per_col": (flop_count(nl_counts) + flop_count(sat_counts)) * nlev,
     }

@@ -46,14 +46,15 @@ def validate(
         if not ok:
             failing.append(name)
         if verbose:
-            if ok:
-                print(f"Validation of {name}: PASSED")
-            else:
-                denom = np.maximum(np.abs(b), atol / max(rtol, 1e-300))
-                rel = np.abs(a - b) / denom
-                print(
-                    f"Validation of {name}: FAILED "
-                    f"(max abs err {np.abs(a - b).max():.3e}, "
-                    f"max rel err {rel.max():.3e})"
-                )
+            err = np.abs(a.astype(np.float64) - b)
+            # the smallest rtol that passes this field at the given atol
+            # (allclose: err <= atol + rtol * |b|)
+            with np.errstate(divide="ignore", invalid="ignore"):
+                need = np.where(err > atol, (err - atol) / np.abs(b), 0.0)
+            print(
+                f"Validation of {name}: {'PASSED' if ok else 'FAILED'} "
+                f"(max abs err {err.max() if err.size else 0.0:.3e}, "
+                f"rtol needed at atol={atol:.1e}: "
+                f"{need.max() if need.size else 0.0:.3e})"
+            )
     return failing

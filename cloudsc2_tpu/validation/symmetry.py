@@ -60,9 +60,8 @@ FIELD_PAIRS = (
 class SymmetryTest:
     """Reference symmetry-test orchestration (``validation.py:44-231``).
 
-    ``impl``: "scan" (default; any platform/precision) or "pallas" /
-    "pallas-interpret" (f32, lane-aligned columns — the hand-written TPU
-    kernels).
+    ``impl``: any of :data:`cloudsc2_tpu.dispatch.IMPLS`; "scan" (the
+    default) runs on any platform and precision.
     """
 
     constants: Constants
@@ -76,11 +75,13 @@ class SymmetryTest:
     mesh: object = None
     _fns: tuple = None  # type: ignore[assignment]
 
-    def _tl_ad(self):
-        from cloudsc2_tpu.dispatch import tl_ad_fns
+    def _tl_ad(self, dtype):
+        from cloudsc2_tpu.dispatch import scheme_fn
 
         if self._fns is None:
-            fns = tl_ad_fns(self.impl)
+            fns = tuple(
+                scheme_fn(s, self.impl, dtype, self.constants) for s in ("tl", "ad")
+            )
             if self.mesh is not None:
                 from cloudsc2_tpu.parallel.step import make_sharded_physics
 
@@ -92,7 +93,7 @@ class SymmetryTest:
         from cloudsc2_tpu.utils.timing import device_sync, timing
 
         c = self.constants
-        tl_fn, ad_fn = self._tl_ad()
+        tl_fn, ad_fn = self._tl_ad(state["t"].dtype)
         state = dict(state)
         with timing("saturation"):
             state["qsat"] = device_sync(saturation(

@@ -12,11 +12,11 @@ _DATA_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "data
 
 
 def default_input_file() -> str | None:
-    """The synthetic input file (upstream ``data/input.h5`` schema), if it
-    exists — drivers load it and tile columns to ``--num-cols`` like the
+    """The synthetic input file (upstream ``data/input.h5`` schema, stored
+    as ``.npz``), if it exists — drivers load it and tile columns to ``--num-cols`` like the
     reference does, so golden validation works at any column count; callers
     fall back to in-memory synthesis when it is absent."""
-    path = os.path.normpath(os.path.join(_DATA_DIR, "input_synth.h5"))
+    path = os.path.normpath(os.path.join(_DATA_DIR, "input_synth.npz"))
     return path if os.path.exists(path) else None
 
 
@@ -25,7 +25,7 @@ def default_reference_file(precision: str) -> str:
     (the analogue of ``data/reference_{double,single}.h5``,
     reference ``drivers/config.py:28-34``)."""
     return os.path.normpath(
-        os.path.join(_DATA_DIR, f"reference_synth_{precision}.h5")
+        os.path.join(_DATA_DIR, f"reference_synth_{precision}.npz")
     )
 
 

@@ -10,13 +10,13 @@ Exit code 0 iff the maximum error < 1e4 machine epsilons.
 """
 from __future__ import annotations
 
+import argparse
 import sys
-
-import click
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
 from drivers.config import DEFAULT_CONFIG, DEFAULT_IO_CONFIG
+from drivers.run_nonlinear import _flag_pair
 
 
 def core(config, io_config, factor, config_impl="scan"):
@@ -60,7 +60,7 @@ def core(config, io_config, factor, config_impl="scan"):
         from cloudsc2_tpu.parallel.mesh import column_mesh, pad_columns, shard_state
 
         mesh = column_mesh()
-        state, _ = pad_columns(state, 128 * mesh.devices.size)
+        state, _ = pad_columns(state, mesh.devices.size)
         state = shard_state(state, mesh)
 
     st = SymmetryTest(constants=c, factor=factor, impl=config_impl, mesh=mesh)
@@ -105,37 +105,37 @@ def core(config, io_config, factor, config_impl="scan"):
     return 0 if err < 1e4 else 1
 
 
-@click.command()
-@click.option("--backend", type=str, default=None, help="JAX platform: cpu | tpu (default: env)")
-@click.option("--num-cols", type=int, default=100)
-@click.option("--num-runs", type=int, default=1)
-@click.option("--precision", type=click.Choice(["double", "single"]), default="double")
-@click.option("--factor", type=float, default=0.01)
-@click.option("--input-file", type=str, default=None)
-@click.option("--output-csv-file", type=str, default=None)
-@click.option("--output-csv-file-stencils", type=str, default=None)
-@click.option("--impl", type=click.Choice(["scan", "pallas", "pallas-interpret", "pallas-tiled"]), default="scan",
-              help="kernel implementation (pallas: f32 TPU kernels)")
-@click.option("--sharded/--no-sharded", default=False,
-              help="column-shard the TL/AD schemes over all devices (shard_map)")
-@click.option("--host-alias", type=str, default="localhost")
-def main(backend, num_cols, num_runs, precision, factor, input_file, output_csv_file,
-         output_csv_file_stencils, impl, sharded, host_alias):
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--backend", default=None, help="JAX platform: gpu | cpu (default: env)")
+    ap.add_argument("--num-cols", type=int, default=100)
+    ap.add_argument("--num-runs", type=int, default=1)
+    ap.add_argument("--precision", choices=["double", "single"], default="double")
+    ap.add_argument("--factor", type=float, default=0.01)
+    ap.add_argument("--input-file", default=None)
+    ap.add_argument("--output-csv-file", default=None)
+    ap.add_argument("--output-csv-file-stencils", default=None)
+    ap.add_argument("--impl", choices=["auto", "scan", "pallas", "pallas-interpret"],
+                    default="scan", help="implementation (pallas: the f32 GPU kernels)")
+    _flag_pair(ap, "sharded", False,
+               "column-shard the TL/AD schemes over all devices (shard_map)")
+    ap.add_argument("--host-alias", default="localhost")
+    a = ap.parse_args(argv)
     config = (
-        DEFAULT_CONFIG.with_precision(precision)
-        .with_backend(backend)
-        .with_num_cols(num_cols)
-        .with_num_runs(num_runs)
-        .with_input_file(input_file)
-        .with_sharded(sharded)
+        DEFAULT_CONFIG.with_precision(a.precision)
+        .with_backend(a.backend)
+        .with_num_cols(a.num_cols)
+        .with_num_runs(a.num_runs)
+        .with_input_file(a.input_file)
+        .with_sharded(a.sharded)
     )
     io_config = (
-        DEFAULT_IO_CONFIG.with_output_csv_file(output_csv_file)
-        .with_output_csv_file_stencils(output_csv_file_stencils)
-        .with_host_name(host_alias)
+        DEFAULT_IO_CONFIG.with_output_csv_file(a.output_csv_file)
+        .with_output_csv_file_stencils(a.output_csv_file_stencils)
+        .with_host_name(a.host_alias)
     )
-    sys.exit(core(config, io_config, factor, impl))
+    return core(config, io_config, a.factor, a.impl)
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

@@ -10,13 +10,13 @@ times for timing.  Exit code 0 iff penalty <= 5.
 """
 from __future__ import annotations
 
+import argparse
 import sys
-
-import click
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
 from drivers.config import DEFAULT_CONFIG, DEFAULT_IO_CONFIG
+from drivers.run_nonlinear import _flag_pair
 
 
 def core(config, io_config, factor1, factor2s, config_impl="scan", floors="f64",
@@ -52,8 +52,8 @@ def core(config, io_config, factor1, factor2s, config_impl="scan", floors="f64",
 
     if tile_column:
         # the reference driver's default is a SINGLE column
-        # (run_taylor_test.py: --num-cols 1); the Pallas kernels need
-        # lane-aligned batches, so replicate column 0 across num_cols —
+        # (run_taylor_test.py: --num-cols 1); replicating column 0 across
+        # num_cols runs that protocol on a batch that fills the device —
         # the column-summed norms then equal the single-column norms.
         # Distinct columns stay the default: their summed norms are the
         # batched protocol, but a single column crossing a physics branch
@@ -71,18 +71,18 @@ def core(config, io_config, factor1, factor2s, config_impl="scan", floors="f64",
     mesh = None
     if config.sharded:
         # mirror run_nonlinear.py --sharded: eta first (global column 0),
-        # pad to the mesh multiple (replicating column 0 — valid physics,
-        # so the padded lanes contribute consistent terms to the summed
-        # norms), then shard; the schemes run under shard_map
+        # pad to the mesh multiple (replicating column 0 — valid physics;
+        # the protocol leaves the padding out of its norms), then shard;
+        # the schemes run under shard_map
         from cloudsc2_tpu.parallel.mesh import column_mesh, pad_columns, shard_state
 
         mesh = column_mesh()
-        state, _ = pad_columns(state, 128 * mesh.devices.size)
+        state, _ = pad_columns(state, mesh.devices.size)
         state = shard_state(state, mesh)
 
     tt = TaylorTest(
         constants=c, factor1=factor1, factor2s=factor2s, impl=config_impl,
-        floors=floors, mesh=mesh, per_column=per_column,
+        floors=floors, mesh=mesh, per_column=per_column, ncols=grid.ncols,
     )
     Timer.reset()
     test = 13
@@ -125,58 +125,57 @@ def core(config, io_config, factor1, factor2s, config_impl="scan", floors="f64",
     return 0 if test <= 5 else 1
 
 
-@click.command()
-@click.option("--backend", type=str, default=None, help="JAX platform: cpu | tpu (default: env)")
-@click.option("--num-cols", type=int, default=1)
-@click.option("--num-runs", type=int, default=1)
-@click.option("--precision", type=click.Choice(["double", "single"]), default="double")
-@click.option("--factor1", type=float, default=0.01)
-@click.option("--input-file", type=str, default=None)
-@click.option("--output-csv-file", type=str, default=None)
-@click.option("--output-csv-file-stencils", type=str, default=None)
-@click.option("--impl", type=click.Choice(["scan", "pallas", "pallas-interpret", "pallas-tiled"]), default="scan",
-              help="kernel implementation (pallas: f32 TPU kernels; pair with "
-              "--floors auto/f32 — the reference's f64 verdict floors are below "
-              "single-precision resolution)")
-@click.option("--floors", type=click.Choice(["auto", "f64", "f32"]), default="f64",
-              help="verdict floor calibration: f64 = the reference constants "
-              "(tangent_linear/validation.py:203-211); f32 = the measured "
-              "single-precision V-floor (benchmarks/README.md); auto picks by "
-              "the state dtype")
-@click.option("--sharded/--no-sharded", default=False,
-              help="column-shard the NL/TL schemes over all devices (shard_map)")
-@click.option("--tile-column/--no-tile-column", default=False,
-              help="replicate input column 0 across --num-cols: the "
-              "reference's single-column protocol on a lane-aligned batch "
-              "(distinct columns can legitimately break V-monotonicity when "
-              "one crosses a physics branch between two lambdas)")
-@click.option("--per-column/--no-per-column", default=False,
-              help="run the V-shape verdict on every column's own norm "
-              "sequence and pass iff >= 98% of columns pass individually — "
-              "the legitimate heterogeneous-batch verdict (the summed-norm "
-              "V can be broken by a single branch-crossing column; a wrong "
-              "TL fails essentially every column)")
-@click.option("--host-alias", type=str, default="localhost")
-def main(backend, num_cols, num_runs, precision, factor1, input_file, output_csv_file,
-         output_csv_file_stencils, impl, floors, sharded, tile_column, per_column,
-         host_alias):
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--backend", default=None, help="JAX platform: gpu | cpu (default: env)")
+    ap.add_argument("--num-cols", type=int, default=1)
+    ap.add_argument("--num-runs", type=int, default=1)
+    ap.add_argument("--precision", choices=["double", "single"], default="double")
+    ap.add_argument("--factor1", type=float, default=0.01)
+    ap.add_argument("--input-file", default=None)
+    ap.add_argument("--output-csv-file", default=None)
+    ap.add_argument("--output-csv-file-stencils", default=None)
+    ap.add_argument("--impl", choices=["auto", "scan", "pallas", "pallas-interpret"],
+                    default="scan",
+                    help="implementation (pallas: the f32 GPU kernels; pair with "
+                    "--floors auto/f32 — the reference's f64 verdict floors are below "
+                    "single-precision resolution)")
+    ap.add_argument("--floors", choices=["auto", "f64", "f32"], default="f64",
+                    help="verdict floor calibration: f64 = the reference constants "
+                    "(tangent_linear/validation.py:203-211); f32 = the measured "
+                    "single-precision V-floor; auto picks by the state dtype")
+    _flag_pair(ap, "sharded", False,
+               "column-shard the NL/TL schemes over all devices (shard_map)")
+    _flag_pair(ap, "tile-column", False,
+               "replicate input column 0 across --num-cols: the reference's "
+               "single-column protocol on a batch (distinct columns can "
+               "legitimately break V-monotonicity when one crosses a physics "
+               "branch between two lambdas)")
+    _flag_pair(ap, "per-column", False,
+               "run the V-shape verdict on every column's own norm sequence and "
+               "pass iff >= 98%% of columns pass individually — the legitimate "
+               "heterogeneous-batch verdict (the summed-norm V can be broken by a "
+               "single branch-crossing column; a wrong TL fails essentially every "
+               "column)")
+    ap.add_argument("--host-alias", default="localhost")
+    a = ap.parse_args(argv)
     config = (
-        DEFAULT_CONFIG.with_precision(precision)
-        .with_backend(backend)
-        .with_num_cols(num_cols)
-        .with_num_runs(num_runs)
-        .with_input_file(input_file)
-        .with_sharded(sharded)
+        DEFAULT_CONFIG.with_precision(a.precision)
+        .with_backend(a.backend)
+        .with_num_cols(a.num_cols)
+        .with_num_runs(a.num_runs)
+        .with_input_file(a.input_file)
+        .with_sharded(a.sharded)
     )
     io_config = (
-        DEFAULT_IO_CONFIG.with_output_csv_file(output_csv_file)
-        .with_output_csv_file_stencils(output_csv_file_stencils)
-        .with_host_name(host_alias)
+        DEFAULT_IO_CONFIG.with_output_csv_file(a.output_csv_file)
+        .with_output_csv_file_stencils(a.output_csv_file_stencils)
+        .with_host_name(a.host_alias)
     )
     factor2s = tuple(float(10.0 ** -(i + 1)) for i in range(10))
-    sys.exit(core(config, io_config, factor1, factor2s, impl, floors, tile_column,
-                  per_column))
+    return core(config, io_config, a.factor1, factor2s, a.impl, a.floors,
+                a.tile_column, a.per_column)
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

@@ -4,8 +4,8 @@
 """Worker process for the multi-host distribution test.
 
 Each worker is one "host" of a two-process JAX cluster (4 virtual CPU
-devices per process — the CPU stand-in for one TPU host of a pod, SURVEY.md
-§2.3 TPU-native column): it initializes ``jax.distributed`` against a local
+devices per process — the CPU stand-in for one host of several GPUs,
+SURVEY.md §2.3): it initializes ``jax.distributed`` against a local
 coordinator, builds the 2-D ``('node', 'device')`` mesh spanning both
 processes, assembles a globally column-sharded state from process-local
 shards, runs the forward step, and checks its local output shards against a
@@ -38,8 +38,8 @@ def main() -> None:
 
     from cloudsc2_tpu.parallel.mesh import initialize_distributed
 
-    # the multi-host entry point (no-op on single process, auto-detected on
-    # TPU pods); here: explicit local coordinator
+    # the multi-host entry point (no-op on single process); here: explicit
+    # local coordinator
     initialize_distributed(
         coordinator_address=f"localhost:{port}",
         num_processes=nproc,

@@ -1,939 +1,219 @@
-
 # Copyright 2026.
 # Licensed under the Apache License, Version 2.0.
-"""Pallas NL kernel vs the lax.scan path (interpret mode on CPU).
+"""The GPU level-scan kernels on the CPU: the harness on a toy recurrence,
+each scheme's kernel in interpret mode against its ``lax.scan`` path, the
+kernels' lowering for CUDA, and the implementation dispatch.
 
-The kernel shares its per-level physics (``nl_level``) with the scan path,
-so this test validates the kernel's memory orchestration: level blocking,
-VMEM carry across sequential grid steps, column tiling, edge padding.
-On real TPU hardware the same comparison runs in compiled mode (see
-bench.py history); differences vs the scan path are pure f32 rounding from
-a different reduction/layout order.
+The kernels share their per-level physics with the scan paths, so the
+comparisons here check the kernel's orchestration: the level loop in both
+directions, the carry, masked ragged column blocks, the trajectory and
+seed streams.  Compiled-kernel checks run on the card through
+``chip_smoke.py`` (the ``gpu`` marker).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from cloudsc2_tpu import make_constants
-from cloudsc2_tpu.physics.diagnostics import eta_levels
-from cloudsc2_tpu.physics.nonlinear import cloudsc2_nl
-from cloudsc2_tpu.physics.saturation import saturation
-from cloudsc2_tpu.pallas.nonlinear import WB, cloudsc2_nl_pallas
+from cloudsc2_tpu.dispatch import scheme_fns
+from cloudsc2_tpu.pallas.levelscan import level_scan_pallas
+from cloudsc2_tpu.validation.kernels import field_errors, scheme_state
+
+# --- the harness on a toy recurrence ---------------------------------------
+
+TOY_NLEV = 7
 
 
-@pytest.fixture(scope="module")
-def f32_state():
-    from cloudsc2_tpu import iox
-
-    c = make_constants(lphylin=True, ldrain1d=False)
-    _, state, dt = iox.synthesize_input(ncols=8 * WB, nlev=137, seed=0, dtype=np.float32)
-    s = {k: jnp.asarray(v, jnp.float32) for k, v in state.items()}
-    s["eta"] = eta_levels(s["ap"], s["aph"])
-    s["qsat"] = saturation(s["ap"], s["t"], kflag=1, lphylin=True, c=c)
-    return s, dt, c
+def _toy_problem(ncols):
+    rng = np.random.default_rng(ncols)
+    a = rng.random((TOY_NLEV, ncols)).astype(np.float32)
+    w = rng.random(ncols).astype(np.float32)
+    s = np.arange(TOY_NLEV, dtype=np.float32) * 0.25
+    return a, w, s
 
 
-def test_pallas_nl_matches_scan(f32_state):
-    s, dt, c = f32_state
-    tends_ref, diags_ref = cloudsc2_nl(s, dt, c)
-    tends, diags = cloudsc2_nl_pallas(s, dt, c, interpret=True)
-    for n in tends_ref:
-        np.testing.assert_allclose(
-            np.asarray(tends[n]), np.asarray(tends_ref[n]), rtol=2e-5, atol=1e-8, err_msg=n
-        )
-    for n in diags_ref:
-        np.testing.assert_allclose(
-            np.asarray(diags[n]), np.asarray(diags_ref[n]), rtol=2e-5, atol=1e-6, err_msg=n
-        )
+def _toy_body(carry, x, col, _k):
+    (c,) = carry
+    c_new = 0.5 * c + x["a"] * col["w"] + x["s"]
+    return (c_new,), {"y": jnp.exp(-c_new) + jnp.where(c_new > 1.0, c_new, 0.0),
+                      "c_in": c}
 
 
-@pytest.fixture(scope="module")
-def f32_state_small():
-    """Small problem (53 levels, 1024 columns) for loop-structure tests.
-
-    The unroll-vs-rolled comparisons only exercise the harness's level
-    blocking / carry handoff, which is nlev-agnostic; 53 levels keeps the
-    ragged edge block (53 % 8 and 53 % 16 are both nonzero) while cutting
-    interpret-mode cost ~10x vs the full 137-level, 4096-column state.
-    """
-    from cloudsc2_tpu import iox
-
-    c = make_constants(lphylin=True, ldrain1d=False)
-    _, state, dt = iox.synthesize_input(ncols=1024, nlev=53, seed=0, dtype=np.float32)
-    s = {k: jnp.asarray(v, jnp.float32) for k, v in state.items()}
-    s["eta"] = eta_levels(s["ap"], s["aph"])
-    s["qsat"] = saturation(s["ap"], s["t"], kflag=1, lphylin=True, c=c)
-    return s, dt, c
+def _toy_reference(a, w, s, reverse):
+    c = np.zeros(a.shape[1], np.float64)
+    y, c_in = np.zeros(a.shape), np.zeros(a.shape)
+    for k in (range(TOY_NLEV - 1, -1, -1) if reverse else range(TOY_NLEV)):
+        c_in[k] = c
+        c = 0.5 * c + a[k].astype(np.float64) * w + s[k]
+        y[k] = np.exp(-c) + np.where(c > 1.0, c, 0.0)
+    return y, c_in
 
 
-@pytest.mark.parametrize("unroll", [4, 99])
-def test_pallas_nl_unrolled_matches_rolled_kernel(f32_state_small, unroll):
-    """The statically unrolled level loop (Mosaic software-pipelining
-    variant) matches the rolled fori_loop kernel to within compiler-level
-    rounding: the two loop structures compile separately, and XLA's
-    fusion/FMA choices can differ by an ulp — anything beyond that is a
-    carry-handoff bug."""
-    s, dt, c = f32_state_small
-    tends_ref, diags_ref = cloudsc2_nl_pallas(s, dt, c, interpret=True, wb=128)
-    tends, diags = cloudsc2_nl_pallas(s, dt, c, interpret=True, wb=128, unroll=unroll)
-    for n in tends_ref:
-        np.testing.assert_allclose(
-            np.asarray(tends[n]), np.asarray(tends_ref[n]), rtol=1e-6, atol=1e-12, err_msg=n
-        )
-    for n in diags_ref:
-        np.testing.assert_allclose(
-            np.asarray(diags[n]), np.asarray(diags_ref[n]), rtol=1e-6, atol=1e-10, err_msg=n
-        )
-
-
-def test_pallas_nl_split_matches_plain_kernel(f32_state_small):
-    """split=True evaluates the carry-independent phase A block-vectorized
-    (levelscan ``pre_body``) with the phase-B tail fully unrolled; it must
-    match the plain per-level kernel to compiler-level rounding (the two
-    loop structures compile separately, so FMA/fusion choices may differ
-    by an ulp).  Measured on v5e: neutral at the NL's kb=16 default but
-    +8% at kb=8 — the shape that matters for the VMEM-bound TL/AD."""
-    s, dt, c = f32_state_small
-    ref = cloudsc2_nl_pallas(s, dt, c, interpret=True, wb=128)
-    got = cloudsc2_nl_pallas(s, dt, c, interpret=True, wb=128, split=True)
-    for r, g in zip(ref, got):
-        for n in r:
-            np.testing.assert_allclose(
-                np.asarray(g[n]), np.asarray(r[n]), rtol=2e-5, atol=1e-6, err_msg=n
-            )
-    # trajectory variant (the AD forward sweep)
-    ref = cloudsc2_nl_pallas(s, dt, c, interpret=True, wb=128, with_trajectory=True)
-    got = cloudsc2_nl_pallas(
-        s, dt, c, interpret=True, wb=128, with_trajectory=True, split=True
+@pytest.mark.parametrize("block_cols", [32, 128, 256])
+@pytest.mark.parametrize("ncols", [100, 300])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_level_scan_toy_recurrence(reverse, ncols, block_cols):
+    """Forward and reverse sweeps, with the carry entering each level as a
+    trajectory output, over ragged column counts (the last block masked)
+    and several block widths."""
+    a, w, s = _toy_problem(ncols)
+    out = level_scan_pallas(
+        _toy_body,
+        level_inputs={"a": jnp.asarray(a)},
+        col_inputs={"w": jnp.asarray(w)},
+        scalar_inputs={"s": jnp.asarray(s)},
+        out_names=("y", "c_in"),
+        ncarry=1,
+        block_cols=block_cols,
+        num_warps=4,
+        reverse=reverse,
+        interpret=True,
     )
-    for r, g in zip(ref, got):
-        for n in r:
-            np.testing.assert_allclose(
-                np.asarray(g[n]), np.asarray(r[n]), rtol=2e-5, atol=1e-6, err_msg=n
-            )
+    y, c_in = _toy_reference(a, w, s, reverse)
+    assert out["y"].shape == (TOY_NLEV, ncols) and out["y"].dtype == jnp.float32
+    np.testing.assert_allclose(np.asarray(out["y"]), y, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(np.asarray(out["c_in"]), c_in, rtol=1e-5, atol=1e-6)
 
 
-def test_pallas_nl_xla_pre_matches_plain_kernel(f32_state_small):
-    """xla_pre=True evaluates phase A as one fused XLA pass over the full
-    (nlev, ncols) grid and streams only the exp/divide-expensive phase-A
-    values into the phase-B tail kernel (cheap ones are recomputed
-    bit-identically inside nl_level_post).  Must match the merged-body
-    kernel to compiler-level rounding — the recompute expressions are
-    bit-identical, so any deviation beyond FMA/fusion ulps is a
-    stream-selection bug."""
-    s, dt, c = f32_state_small
-    ref = cloudsc2_nl_pallas(s, dt, c, interpret=True, wb=128)
-    got = cloudsc2_nl_pallas(s, dt, c, interpret=True, wb=128, xla_pre=True)
-    for r, g in zip(ref, got):
-        for n in r:
-            np.testing.assert_allclose(
-                np.asarray(g[n]), np.asarray(r[n]), rtol=2e-5, atol=1e-6, err_msg=n
-            )
-    # trajectory variant (the AD forward sweep)
-    ref = cloudsc2_nl_pallas(s, dt, c, interpret=True, wb=128, with_trajectory=True)
-    got = cloudsc2_nl_pallas(
-        s, dt, c, interpret=True, wb=128, with_trajectory=True, xla_pre=True
+def test_level_scan_rejects_bad_inputs():
+    a, w, s = _toy_problem(100)
+    kw = dict(
+        col_inputs={"w": jnp.asarray(w)}, scalar_inputs={"s": jnp.asarray(s)},
+        out_names=("y",), ncarry=1, num_warps=4, interpret=True,
     )
-    for r, g in zip(ref, got):
-        for n in r:
-            np.testing.assert_allclose(
-                np.asarray(g[n]), np.asarray(r[n]), rtol=2e-5, atol=1e-6, err_msg=n
-            )
-
-
-def test_pallas_nl_xla_pre_evap_branch():
-    """The LEVAPLS2/LDRAIN1D evaporation branch streams four extra phase-A
-    values (qsat, corqs, sqr, dtgdp); compare against the scan path with the
-    branch active."""
-    from cloudsc2_tpu import iox
-
-    c = make_constants(lphylin=True, ldrain1d=True)
-    _, state, dt = iox.synthesize_input(ncols=1024, nlev=53, seed=3, dtype=np.float32)
-    s = {k: jnp.asarray(v, jnp.float32) for k, v in state.items()}
-    s["eta"] = eta_levels(s["ap"], s["aph"])
-    s["qsat"] = saturation(s["ap"], s["t"], kflag=1, lphylin=True, c=c)
-    ref = cloudsc2_nl_pallas(s, dt, c, interpret=True, wb=128)
-    got = cloudsc2_nl_pallas(s, dt, c, interpret=True, wb=128, xla_pre=True)
-    # fhpsl/fhpsn are fplsl/fplsn scaled by the latent heats (~2.5e6), so
-    # the flux-level ulp absorption scales with them
-    scale = {"fhpsl": c.RLVTT, "fhpsn": c.RLSTT}
-    for r, g in zip(ref, got):
-        for n in r:
-            np.testing.assert_allclose(
-                np.asarray(g[n]), np.asarray(r[n]),
-                rtol=2e-5, atol=1e-6 * scale.get(n, 1.0), err_msg=n,
-            )
-
-
-def test_pallas_nl_fused_saturation(f32_state):
-    """fuse_saturation=True computes qsat + first-guess T in-kernel and
-    matches the separate Saturation -> NL pipeline (the reference hot loop,
-    run_nonlinear.py:115-119, as one kernel launch)."""
-    s, dt, c = f32_state
-    tends_ref, diags_ref = cloudsc2_nl(s, dt, c)
-    s_nq = {k: v for k, v in s.items() if k != "qsat"}
-    tends, diags = cloudsc2_nl_pallas(
-        s_nq, dt, c, interpret=True, fuse_saturation=True
-    )
-    np.testing.assert_allclose(
-        np.asarray(diags["qsat"]), np.asarray(s["qsat"]), rtol=1e-6, atol=1e-10
-    )
-    for n in tends_ref:
-        np.testing.assert_allclose(
-            np.asarray(tends[n]), np.asarray(tends_ref[n]), rtol=2e-5, atol=1e-8, err_msg=n
-        )
-    for n in diags_ref:
-        np.testing.assert_allclose(
-            np.asarray(diags[n]), np.asarray(diags_ref[n]), rtol=2e-5, atol=1e-6, err_msg=n
+    with pytest.raises(ValueError, match="power of two"):
+        level_scan_pallas(_toy_body, level_inputs={"a": jnp.asarray(a)}, block_cols=96, **kw)
+    with pytest.raises(ValueError, match="level input"):
+        level_scan_pallas(
+            _toy_body,
+            level_inputs={"a": jnp.asarray(a), "b": jnp.asarray(a[:-1])},
+            block_cols=64, **kw,
         )
 
 
-def test_component_pallas_rejects_f64():
-    """impl='pallas' on f64 state raises a clear error (Mosaic has no f64;
-    the scan path is the f64 oracle)."""
-    from cloudsc2_tpu.components import _select_impl
-
-    s = {"ap": jnp.zeros((4, 8), jnp.float64)}
-    with pytest.raises(ValueError, match="single precision"):
-        _select_impl("pallas", s)
+# --- each scheme's kernel against its scan path ----------------------------
 
 
-def test_pallas_nl_rejects_ragged_columns(f32_state):
-    s, dt, c = f32_state
-    bad = {k: (v if v.ndim < 2 else v[:, : 8 * WB - 8]) for k, v in s.items()}
-    with pytest.raises(ValueError, match="multiple"):
-        cloudsc2_nl_pallas(bad, dt, c, interpret=True)
+def _constants(cfg):
+    c = make_constants(lphylin=cfg != "no_lphylin", ldrain1d=cfg == "ldrain1d")
+    return c.replace(LEVAPLS2=True) if cfg == "levapls2" else c
 
 
-def test_pallas_symmetry(f32_state):
-    """The full Pallas TL + AD pipeline satisfies <Mx,Mx> = <x,M*(Mx)> —
-    the reference's AD acceptance gate (adjoint/validation.py:155-165) on
-    the hand-written kernels."""
-    from cloudsc2_tpu.physics.increment import state_increment
-    from cloudsc2_tpu.pallas.adjoint import cloudsc2_ad_pallas
-    from cloudsc2_tpu.pallas.tangent_linear import cloudsc2_tl_pallas
+#: largest field error over that field's largest magnitude.  Same level
+#: bodies, f32 on both sides; what differs is XLA's fusion of the scan loop
+#: against the kernel's, a few ulps per level (measured below 1e-6 here).
+KERNEL_TOL = 1e-5
+
+CASES = [
+    (scheme, cfg)
+    for scheme in ("nl", "tl", "ad")
+    for cfg in ("default", "levapls2", "ldrain1d", "no_lphylin")
+    # the adjoint kernel needs LPHYLIN=True (its forward sweep is the NL)
+    if not (scheme == "ad" and cfg == "no_lphylin")
+]
+
+
+@pytest.mark.parametrize("ncols", [100, 256])
+@pytest.mark.parametrize("scheme,cfg", CASES)
+def test_kernel_matches_scan(scheme, cfg, ncols):
+    c = _constants(cfg)
+    state, dt = scheme_state(scheme, ncols, np.float32, c)
+    scan, kernel = scheme_fns(scheme)
+    errs = field_errors(scan(state, dt, c), kernel(state, dt, c, interpret=True))
+    worst = max(errs, key=lambda n: errs[n][1])
+    assert errs[worst][1] <= KERNEL_TOL, (worst, errs[worst])
+    if scheme == "ad" and cfg != "default":
+        # the evaporation branch's surface-pressure cotangent path fires
+        _, diags = kernel(state, dt, c, interpret=True)
+        assert np.abs(np.asarray(diags["aph_i"][-1])).max() > 0.0
+
+
+def test_kernel_symmetry():
+    """The TL and AD kernels together satisfy <Mx,Mx> = <x,M*(Mx)> — the
+    reference's AD acceptance gate (adjoint/validation.py:155-165)."""
     from cloudsc2_tpu.validation.symmetry import SymmetryTest
 
-    s, dt, c = f32_state
-    s = dict(s)
-    incr = state_increment(s, 0.01, ignore_supsat=True)
-    s.update(incr)
-    tt, dd = cloudsc2_tl_pallas(s, dt, c, interpret=True)
-    norm1 = SymmetryTest.get_norm1(tt, dd)
-    for n in ("t", "q", "ql", "qi"):
-        s["tnd_" + n] = tt[n]
-        s["tnd_" + n + "_i"] = tt[n + "_i"]
-    for n in ("clc", "covptot", "fhpsl", "fhpsn", "fplsl", "fplsn"):
-        s[n + "_i"] = dd[n + "_i"]
-    t_ad, d_ad = cloudsc2_ad_pallas(s, dt, c, interpret=True)
-    norm2 = SymmetryTest.get_norm2(incr, t_ad, d_ad)
-    n1, n2 = np.asarray(norm1), np.asarray(norm2)
-    eps = np.finfo(np.float32).eps
-    err = (np.abs(n1 - n2) / (eps * np.abs(n2))).max()
+    c = _constants("default")
+    state, dt = scheme_state("nl", 256, np.float32, c)
+    state = {k: v for k, v in state.items() if k != "qsat"}
+    err = SymmetryTest(constants=c, impl="pallas-interpret")(state, dt, verbose=False)
     assert err < 1e4, err
 
 
-def test_pallas_ad_matches_scan_adjoint(f32_state):
-    """The AD kernel's cotangents equal the scan adjoint's (vjp of the scan
-    TL), per field scaled by the field's magnitude, and its forward
-    recompute matches.  (Independent-autodiff verification of the adjoint
-    itself is tests/test_adjoint.py::test_ad_matches_vjp_without_regularization;
-    here both paths share tl_level by design, so this validates the kernel's
-    memory orchestration, not the derivative.)"""
-    from cloudsc2_tpu.physics.adjoint import cloudsc2_ad
-    from cloudsc2_tpu.physics.increment import state_increment
-    from cloudsc2_tpu.physics.tangent_linear import cloudsc2_tl
-    from cloudsc2_tpu.pallas.adjoint import cloudsc2_ad_pallas
-
-    s, dt, c = f32_state
-    s = dict(s)
-    s.update(state_increment(s, 0.01, ignore_supsat=True))
-    tt, dd = cloudsc2_tl(s, dt, c)
-    for n in ("t", "q", "ql", "qi"):
-        s["tnd_" + n] = tt[n]
-        s["tnd_" + n + "_i"] = tt[n + "_i"]
-    for n in ("clc", "covptot", "fhpsl", "fhpsn", "fplsl", "fplsn"):
-        s[n + "_i"] = dd[n + "_i"]
-    t_ref, d_ref = cloudsc2_ad(s, dt, c)
-    t_p, d_p = cloudsc2_ad_pallas(s, dt, c, interpret=True)
-    for ref, got in ((t_ref, t_p), (d_ref, d_p)):
-        for n in ref:
-            a, b = np.asarray(got[n]), np.asarray(ref[n])
-            scale = np.abs(b).max() + 1e-30
-            np.testing.assert_allclose(a / scale, b / scale, atol=2e-6, err_msg=n)
+# --- the kernels' lowering for the GPU, on the CPU -------------------------
 
 
-def test_pallas_tl_matches_scan(f32_state):
-    from cloudsc2_tpu.physics.increment import state_increment
-    from cloudsc2_tpu.physics.tangent_linear import cloudsc2_tl
-    from cloudsc2_tpu.pallas.tangent_linear import cloudsc2_tl_pallas
-
-    s, dt, c = f32_state
-    s = dict(s)
-    s.update(state_increment(s, 0.01))
-    tends_ref, diags_ref = cloudsc2_tl(s, dt, c)
-    tends, diags = cloudsc2_tl_pallas(s, dt, c, interpret=True)
-    for n in tends_ref:
-        np.testing.assert_allclose(
-            np.asarray(tends[n]), np.asarray(tends_ref[n]), rtol=3e-5, atol=1e-7, err_msg=n
-        )
-    for n in diags_ref:
-        np.testing.assert_allclose(
-            np.asarray(diags[n]), np.asarray(diags_ref[n]), rtol=3e-5, atol=1e-5, err_msg=n
-        )
-
-
-@pytest.mark.parametrize("mode,bound", [("faithful", 1e-3), ("approx", 0.2)])
-def test_pallas_fast_div_modes(f32_state, mode, bound):
-    """FAST_DIV plumbing: the non-exact divide strategies (hardware
-    approximate reciprocal, ``fastmath.rcp``) produce physically valid
-    outputs close to the exact kernel.  Interpret mode models the approx
-    reciprocal at ~3.8e-3 relative error — ~650x worse than the measured
-    v5e hardware (~6e-6, ``benchmarks/microbench_div.py``) — so the bounds
-    here are deliberately loose; the hardware-accuracy gate is the driver's
-    f32 golden validation with ``--fast-div`` (``benchmarks/sweep_fastdiv.py``)."""
-    s, dt, c = f32_state
-    ref_t, ref_d = cloudsc2_nl_pallas(s, dt, c, interpret=True)
-    cf = c.replace(FAST_DIV=mode)
-    t2, d2 = cloudsc2_nl_pallas(s, dt, cf, interpret=True)
-    for ref, got in ((ref_t, t2), (ref_d, d2)):
-        for k in ref:
-            a = np.asarray(ref[k], np.float64)
-            b = np.asarray(got[k], np.float64)
-            assert np.isfinite(b).all(), k
-            scaled = np.abs(a - b).max() / max(np.abs(a).max(), 1e-30)
-            assert scaled < bound, (k, scaled)
-    clc = np.asarray(d2["clc"])
-    assert (clc >= 0.0).all() and (clc <= 1.0).all()
-    assert (np.asarray(d2["fplsl"]) >= 0).all()
-    assert (np.asarray(d2["fplsn"]) >= 0).all()
-
-
-@pytest.mark.parametrize("unroll", [2, 10])
-def test_pallas_tl_unrolled_matches_rolled_kernel(f32_state_small, unroll):
-    """TL kernel: the padded/unrolled level loop matches the rolled ragged
-    one (forward padding is below the surface; outputs there are
-    discarded and the carry past the last real level is never read)."""
-    from cloudsc2_tpu.pallas.tangent_linear import cloudsc2_tl_pallas
-    from cloudsc2_tpu.physics.increment import state_increment
-
-    s, dt, c = f32_state_small
-    s = dict(s)
-    s.update(state_increment(s, 0.01, ignore_supsat=True))
-    t_ref, d_ref = cloudsc2_tl_pallas(s, dt, c, interpret=True, wb=128)
-    t_u, d_u = cloudsc2_tl_pallas(s, dt, c, interpret=True, wb=128, unroll=unroll)
-    # rtol 2e-5: the two loop structures compile separately and XLA's
-    # FMA/fusion choices differ; atol 1e-6 absorbs accumulation-order
-    # noise on near-cancelling flux perturbations (field scale O(100),
-    # observed worst case ~2e-8 abs)
-    for ref, got in ((t_ref, t_u), (d_ref, d_u)):
-        for n in ref:
-            np.testing.assert_allclose(
-                np.asarray(got[n]), np.asarray(ref[n]), rtol=2e-5, atol=1e-6, err_msg=n
-            )
-
-
-def test_pallas_tl_split_matches_plain_kernel(f32_state_small):
-    """TL split=True (block-vectorized tl_level_pre + fully unrolled tail)
-    matches the plain per-level TL kernel.  Measured-negative for speed on
-    v5e (benchmarks/README.md) but kept as tested infrastructure."""
-    from cloudsc2_tpu.pallas.tangent_linear import cloudsc2_tl_pallas
-    from cloudsc2_tpu.physics.increment import state_increment
-
-    s, dt, c = f32_state_small
-    s = dict(s)
-    s.update(state_increment(s, 0.01, ignore_supsat=True))
-    ref = cloudsc2_tl_pallas(s, dt, c, interpret=True, wb=128)
-    got = cloudsc2_tl_pallas(s, dt, c, interpret=True, wb=128, split=True)
-    for r, g in zip(ref, got):
-        for n in r:
-            np.testing.assert_allclose(
-                np.asarray(g[n]), np.asarray(r[n]), rtol=2e-5, atol=1e-6, err_msg=n
-            )
-
-
-@pytest.mark.parametrize("unroll", [2, 5])
-def test_pallas_ad_unrolled_matches_rolled_kernel(f32_state_small, unroll):
-    """AD kernel: the unrolled REVERSE sweep — padded levels run first with
-    zero-padded cotangent seeds (levelscan ``zero_pad_names``), and the
-    vjp-of-linear-TL body guarantees they add exactly zero to the carry
-    cotangents — must reproduce the rolled ragged sweep."""
-    from cloudsc2_tpu.pallas.adjoint import cloudsc2_ad_pallas
-    from cloudsc2_tpu.pallas.tangent_linear import cloudsc2_tl_pallas
-    from cloudsc2_tpu.physics.increment import state_increment
-    from cloudsc2_tpu.validation.symmetry import DIAG_NAMES, TEND_NAMES
-
-    s, dt, c = f32_state_small
-    s = dict(s)
-    s.update(state_increment(s, 0.01, ignore_supsat=True))
-    tends_tl, diags_tl = cloudsc2_tl_pallas(s, dt, c, interpret=True, wb=128)
-    for name in TEND_NAMES:
-        s["tnd_" + name] = tends_tl[name]
-        s["tnd_" + name + "_i"] = tends_tl[name + "_i"]
-    for name in DIAG_NAMES:
-        s[name + "_i"] = diags_tl[name + "_i"]
-    t_ref, d_ref = cloudsc2_ad_pallas(s, dt, c, interpret=True, wb=128)
-    # fwd_unroll defaults to MATCHING unroll (measured: mixed layouts pay a
-    # relayout); u=5 divides the reverse KB (10) but not the forward
-    # kernel's own kb (16), so align fwd_kb too.  (The u >= kb full-unroll
-    # branch is covered by the TL test at u=10 — tracing the fully
-    # unrolled vjp bodies here is prohibitively slow in interpret mode.)
-    fwd_kb = 10 if unroll == 5 else None
-    t_u, d_u = cloudsc2_ad_pallas(
-        s, dt, c, interpret=True, wb=128, unroll=unroll, fwd_kb=fwd_kb
+@pytest.mark.parametrize("scheme,cfg", [
+    ("nl", "default"), ("nl", "levapls2"), ("tl", "default"), ("tl", "ldrain1d"),
+    ("ad", "default"), ("ad", "levapls2"),
+])
+def test_kernel_lowers_for_cuda(scheme, cfg):
+    """Every primitive of the level bodies (and of the vjp the adjoint's
+    reverse body takes) lowers through Pallas's Triton route; the GPU's own
+    compiler runs on the card (chip_smoke.py)."""
+    c = _constants(cfg)
+    state, dt = scheme_state(scheme, 64, np.float32, c)
+    _, kernel = scheme_fns(scheme)
+    lowered = jax.jit(lambda s: kernel(s, dt, c)).trace(state).lower(
+        lowering_platforms=("cuda",)
     )
-    # scale-relative per field (as the scan-adjoint comparison above): the
-    # two loop structures compile separately, and FMA-contraction
-    # differences flip knife-edge branch predicates on isolated lanes whose
-    # cotangents are ~1e-9 of the field scale — elementwise-relative
-    # comparison is meaningless there, while a padding/carry-handoff bug
-    # would show at O(1) of the field scale
-    for ref, got in ((t_ref, t_u), (d_ref, d_u)):
-        for n in ref:
-            a, b = np.asarray(got[n]), np.asarray(ref[n])
-            scale = np.abs(b).max() + 1e-30
-            np.testing.assert_allclose(a / scale, b / scale, atol=1e-6, err_msg=n)
+    assert "triton" in lowered.as_text()
 
 
-def test_pallas_ad_padded_traj_handoff_matches_default(f32_state_small):
-    """Padded forward (fwd_unroll=2) handing its trajectory to the RAGGED
-    reverse kernel at the padded height (levelscan min-height rule +
-    ``cloudsc2_nl_pallas(padded_traj=True)``, no slice/pad relayout) must
-    reproduce the matched-rolled default.  Measured on v5e as a perf
-    negative (benchmarks/README.md §Round 3) but kept as tested harness
-    generality: level inputs taller than the logical level count."""
-    from cloudsc2_tpu.pallas.adjoint import cloudsc2_ad_pallas
-    from cloudsc2_tpu.pallas.tangent_linear import cloudsc2_tl_pallas
-    from cloudsc2_tpu.physics.increment import state_increment
-    from cloudsc2_tpu.validation.symmetry import DIAG_NAMES, TEND_NAMES
-
-    s, dt, c = f32_state_small
-    s = dict(s)
-    s.update(state_increment(s, 0.01, ignore_supsat=True))
-    tends_tl, diags_tl = cloudsc2_tl_pallas(s, dt, c, interpret=True, wb=128)
-    for name in TEND_NAMES:
-        s["tnd_" + name] = tends_tl[name]
-        s["tnd_" + name + "_i"] = tends_tl[name + "_i"]
-    for name in DIAG_NAMES:
-        s[name + "_i"] = diags_tl[name + "_i"]
-    t_ref, d_ref = cloudsc2_ad_pallas(s, dt, c, interpret=True, wb=128)
-    t_p, d_p = cloudsc2_ad_pallas(
-        s, dt, c, interpret=True, wb=128, fwd_unroll=2
-    )
-    for ref, got in ((t_ref, t_p), (d_ref, d_p)):
-        for n in ref:
-            a, b = np.asarray(got[n]), np.asarray(ref[n])
-            scale = np.abs(b).max() + 1e-30
-            np.testing.assert_allclose(a / scale, b / scale, atol=1e-6, err_msg=n)
+# --- implementation dispatch -----------------------------------------------
 
 
-@pytest.mark.parametrize("cfg", ["levapls2", "ldrain1d"])
-def test_pallas_ad_evap_branch_matches_scan_adjoint(f32_state_small, cfg):
-    """AD kernel with the precipitation-evaporation branch compiled in
-    (``LEVAPLS2``/``LDRAIN1D``): the reverse sweep emits the extra
-    surface-pressure cotangent stream (the reference's staggered
-    ``aph_s_i`` correction, ``adjoint/_stencils/cloudsc2.py:969-986``) and
-    the assembled ``aph_i`` — including its surface row — matches the scan
-    adjoint, whose ``jax.vjp`` produces that path automatically."""
-    from cloudsc2_tpu.pallas.adjoint import cloudsc2_ad_pallas
-    from cloudsc2_tpu.physics.adjoint import cloudsc2_ad
-    from cloudsc2_tpu.physics.increment import state_increment
-    from cloudsc2_tpu.physics.tangent_linear import cloudsc2_tl
-    from cloudsc2_tpu.validation.symmetry import DIAG_NAMES, TEND_NAMES
+@pytest.mark.parametrize("backend,dtype,scheme,lphylin,expected", [
+    ("gpu", np.float32, "nl", True, True),
+    ("gpu", np.float32, "ad", True, True),
+    ("gpu", np.float32, "ad", False, False),
+    ("gpu", np.float64, "tl", True, False),
+    ("cpu", np.float32, "nl", True, False),
+])
+def test_auto_dispatch(monkeypatch, backend, dtype, scheme, lphylin, expected):
+    from cloudsc2_tpu.dispatch import scheme_fn, use_kernel
 
-    s, dt, _ = f32_state_small
-    c = make_constants(lphylin=True, ldrain1d=cfg == "ldrain1d")
-    if cfg == "levapls2":
-        c = c.replace(LEVAPLS2=True)
-    s = dict(s)
-    s["qsat"] = saturation(s["ap"], s["t"], kflag=1, lphylin=True, c=c)
-    s.update(state_increment(s, 0.01, ignore_supsat=True))
-    tends_tl, diags_tl = cloudsc2_tl(s, dt, c)
-    for name in TEND_NAMES:
-        s["tnd_" + name] = tends_tl[name]
-        s["tnd_" + name + "_i"] = tends_tl[name + "_i"]
-    for name in DIAG_NAMES:
-        s[name + "_i"] = diags_tl[name + "_i"]
-    t_ref, d_ref = cloudsc2_ad(s, dt, c)
-    t_p, d_p = cloudsc2_ad_pallas(s, dt, c, interpret=True, wb=128)
-    # the path under test must actually fire: the evaporation branch reads
-    # aph_s at every level, so its surface cotangent is nonzero
-    assert np.abs(np.asarray(d_ref["aph_i"][-1])).max() > 0.0
-    for ref, got in ((t_ref, t_p), (d_ref, d_p)):
-        for n in ref:
-            a, b = np.asarray(got[n]), np.asarray(ref[n])
-            scale = np.abs(b).max() + 1e-30
-            np.testing.assert_allclose(a / scale, b / scale, atol=2e-6, err_msg=n)
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    c = make_constants(lphylin=lphylin, ldrain1d=False)
+    assert use_kernel("auto", scheme, dtype, c) is expected
+    scan, kernel = scheme_fns(scheme)
+    assert scheme_fn(scheme, "auto", dtype, c) is (kernel if expected else scan)
 
 
-def test_cloudsc2_ad_component_warns_on_scan_fallback(f32_state_small):
-    """``Cloudsc2AD`` with a config outside the kernel matrix
-    (``LPHYLIN=False``) warns about the silent Pallas->scan fallback and
-    still returns the exact scan-adjoint result (VERDICT r2 weak #4)."""
-    import warnings
+@pytest.mark.parametrize("impl,dtype,scheme,lphylin", [
+    ("pallas", np.float64, "nl", True),
+    ("pallas-interpret", np.float64, "tl", True),
+    ("pallas", np.float32, "ad", False),
+    ("tiled", np.float32, "nl", True),
+])
+def test_explicit_kernel_never_falls_back(impl, dtype, scheme, lphylin):
+    from cloudsc2_tpu.dispatch import scheme_fn
 
-    from cloudsc2_tpu.components import Cloudsc2AD
-    from cloudsc2_tpu.grid import Grid
-    from cloudsc2_tpu.physics.adjoint import cloudsc2_ad
-    from cloudsc2_tpu.physics.increment import state_increment
-    from cloudsc2_tpu.physics.tangent_linear import cloudsc2_tl
-    from cloudsc2_tpu.validation.symmetry import DIAG_NAMES, TEND_NAMES
-
-    s, dt, _ = f32_state_small
-    c = make_constants(lphylin=False, ldrain1d=False)
-    s = dict(s)
-    s["qsat"] = saturation(s["ap"], s["t"], kflag=1, lphylin=False, c=c)
-    s.update(state_increment(s, 0.01, ignore_supsat=True))
-    tends_tl, diags_tl = cloudsc2_tl(s, dt, c)
-    for name in TEND_NAMES:
-        s["tnd_" + name] = tends_tl[name]
-        s["tnd_" + name + "_i"] = tends_tl[name + "_i"]
-    for name in DIAG_NAMES:
-        s[name + "_i"] = diags_tl[name + "_i"]
-    nlev, ncols = s["ap"].shape
-    comp = Cloudsc2AD(Grid(ncols=ncols, nlev=nlev), c, impl="pallas-interpret")
-    with pytest.warns(UserWarning, match="falling back to the exact lax.scan"):
-        t_comp, d_comp = comp(s, dt)
-    t_ref, d_ref = cloudsc2_ad(s, dt, c)
-    for ref, got in ((t_ref, t_comp), (d_ref, d_comp)):
-        for n in ref:
-            np.testing.assert_array_equal(np.asarray(got[n]), np.asarray(ref[n]), err_msg=n)
+    c = make_constants(lphylin=lphylin, ldrain1d=False)
+    with pytest.raises(ValueError, match="impl="):
+        scheme_fn(scheme, impl, dtype, c)
 
 
-@pytest.mark.parametrize(
-    "kw",
-    [
-        dict(unroll=1),
-        dict(unroll=2),
-        dict(unroll=1, resident=True),
-        dict(unroll=1, state_tiled=True),
-        dict(unroll=1, resident=True, state_tiled=True),
-    ],
-    ids=["rolled", "unroll2", "resident", "tiled", "tiled-resident"],
-)
-def test_pallas_ad_fused_matches_two_kernel(f32_state_small, kw):
-    """The fused single-kernel adjoint (forward NL sweep + reverse
-    transpose in ONE pallas_call, VMEM trajectory stack — the reference's
-    one-stencil shape) reproduces the two-kernel pipeline, across the
-    rolled/ragged, partially-unrolled/padded, and VMEM-resident-input
-    layouts.  Interpret mode executes identical per-level math, so the
-    comparison is exact."""
-    from cloudsc2_tpu.pallas.adjoint import (
-        cloudsc2_ad_pallas,
-        cloudsc2_ad_pallas_fused,
-    )
-    from cloudsc2_tpu.pallas.tangent_linear import cloudsc2_tl_pallas
-    from cloudsc2_tpu.physics.increment import state_increment
-    from cloudsc2_tpu.validation.symmetry import DIAG_NAMES, TEND_NAMES
+def test_component_explicit_kernel_raises(state_with_qsat, constants):
+    """The components route through the same dispatch: an explicit kernel
+    impl on a state the kernel cannot take raises instead of running scan."""
+    from cloudsc2_tpu.components import Cloudsc2NL
 
-    s, dt, c = f32_state_small
-    s = dict(s)
-    s.update(state_increment(s, 0.01, ignore_supsat=True))
-    tends_tl, diags_tl = cloudsc2_tl_pallas(s, dt, c, interpret=True, wb=128)
-    for name in TEND_NAMES:
-        s["tnd_" + name] = tends_tl[name]
-        s["tnd_" + name + "_i"] = tends_tl[name + "_i"]
-    for name in DIAG_NAMES:
-        s[name + "_i"] = diags_tl[name + "_i"]
-    t_ref, d_ref = cloudsc2_ad_pallas(s, dt, c, interpret=True, wb=128)
-    if kw.get("state_tiled"):
-        from cloudsc2_tpu.pallas.levelscan import tile_field, untile_field
-
-        st = {
-            k: (tile_field(v, 128) if getattr(v, "ndim", 0) == 2 else v)
-            for k, v in s.items()
-        }
-        t_f, d_f = cloudsc2_ad_pallas_fused(st, dt, c, interpret=True, **kw)
-        t_f = {k: untile_field(v) for k, v in t_f.items()}
-        d_f = {k: untile_field(v) for k, v in d_f.items()}
-    else:
-        t_f, d_f = cloudsc2_ad_pallas_fused(
-            s, dt, c, interpret=True, wb=128, **kw
-        )
-    for ref, got in ((t_ref, t_f), (d_ref, d_f)):
-        for n in ref:
-            np.testing.assert_array_equal(
-                np.asarray(got[n]), np.asarray(ref[n]), err_msg=n
-            )
+    grid, state, dt = state_with_qsat
+    with pytest.raises(ValueError, match="no NL kernel for float64"):
+        Cloudsc2NL(grid, constants, impl="pallas")(state, dt)
 
 
-@pytest.mark.parametrize("unroll", [1, 2])
-def test_pallas_nl_interleaved_chains_bit_exact(f32_state_small, unroll):
-    """interleave=2 runs two independent (8, wb) column sub-tiles with
-    separate carries through the same level loop (VERDICT r3 item 2 — the
-    dual-carry-chain ILP lever).  Each column runs exactly the same ops in
-    the same order as the single-chain kernel, so the outputs must be
-    BITWISE identical; any difference is a chain/carry indexing bug."""
-    s, dt, c = f32_state_small
-    ref = cloudsc2_nl_pallas(s, dt, c, interpret=True, wb=128, unroll=unroll)
-    got = cloudsc2_nl_pallas(
-        s, dt, c, interpret=True, wb=64, unroll=unroll, interleave=2
-    )
-    for r_d, g_d in zip(ref, got):
-        for n in r_d:
-            np.testing.assert_array_equal(
-                np.asarray(g_d[n]), np.asarray(r_d[n]), err_msg=n
-            )
-
-
-@pytest.mark.parametrize("unroll", [1, 99])
-def test_pallas_nl_pipelined_matches_plain(f32_state_small, unroll):
-    """pipeline=True: explicit one-level software pipeline (phase A of
-    level k+1 computed in the same loop body as phase B of level k, the
-    structural lever the round-4 serial-roofline bracketing motivates).
-    Must match the plain kernel to compiler-level rounding — phase B
-    recomputes the cheap phase-A values bit-identically (the xla_pre
-    contract), so differences are XLA fusion/FMA choices only."""
-    s, dt, c = f32_state_small
-    ref = cloudsc2_nl_pallas(s, dt, c, interpret=True, wb=128)
-    got = cloudsc2_nl_pallas(
-        s, dt, c, interpret=True, wb=128, unroll=unroll, pipeline=True
-    )
-    for r_d, g_d in zip(ref, got):
-        for n in r_d:
-            np.testing.assert_allclose(
-                np.asarray(g_d[n]), np.asarray(r_d[n]), rtol=2e-5, atol=1e-6,
-                err_msg=n,
-            )
-
-
-def test_pallas_nl_packed_streams_bit_exact(f32_state_small):
-    """pack=True stacks the level inputs into two packed kernel refs
-    (levelscan pack_inputs); per-column computation is identical, so the
-    outputs must be bitwise equal to the unpacked kernel (rolled and
-    unrolled layouts)."""
-    s, dt, c = f32_state_small
-    for unroll in (1, 2):
-        ref = cloudsc2_nl_pallas(s, dt, c, interpret=True, wb=128, unroll=unroll)
-        got = cloudsc2_nl_pallas(
-            s, dt, c, interpret=True, wb=128, unroll=unroll, pack=True
-        )
-        for r_d, g_d in zip(ref, got):
-            for n in r_d:
-                np.testing.assert_array_equal(
-                    np.asarray(g_d[n]), np.asarray(r_d[n]), err_msg=n
-                )
-
-
-def test_pallas_nl_tile_layout_bit_exact(f32_state_small):
-    """tile_layout=True relays streams out tile-contiguously (one
-    contiguous HBM extent per grid instance — the round-5 layout probe for
-    the large-batch falloff); per-column computation is identical, so all
-    outputs must be bitwise equal to the global-layout kernel, in the
-    rolled (ragged) and unrolled (padded) layouts, with and without the
-    trajectory streams."""
-    s, dt, c = f32_state_small
-    for unroll in (1, 2):
-        ref = cloudsc2_nl_pallas(s, dt, c, interpret=True, wb=128, unroll=unroll)
-        got = cloudsc2_nl_pallas(
-            s, dt, c, interpret=True, wb=128, unroll=unroll, tile_layout=True
-        )
-        for r_d, g_d in zip(ref, got):
-            for n in r_d:
-                np.testing.assert_array_equal(
-                    np.asarray(g_d[n]), np.asarray(r_d[n]), err_msg=n
-                )
-    ref = cloudsc2_nl_pallas(
-        s, dt, c, interpret=True, wb=128, with_trajectory=True
-    )
-    got = cloudsc2_nl_pallas(
-        s, dt, c, interpret=True, wb=128, with_trajectory=True,
-        tile_layout=True,
-    )
-    for r_d, g_d in zip(ref, got):
-        for n in r_d:
-            np.testing.assert_array_equal(
-                np.asarray(g_d[n]), np.asarray(r_d[n]), err_msg=n
-            )
-
-
-def test_pallas_nl_state_tiled_bit_exact(f32_state_small):
-    """state_tiled=True: the whole call operates on tiled-native storage
-    ((nj, L, 8, wb) fields; levelscan pre_tiled/keep_tiled) — the
-    persistent-storage form that eliminates per-step relayouts in chains.
-    Outputs, de-tiled, must be bitwise equal to the standard-layout
-    kernel (including the XLA-side tropopause search and flux assembly,
-    which are re-derived on the tiled axes)."""
-    from cloudsc2_tpu.pallas.levelscan import tile_field, untile_field
-
-    s, dt, c = f32_state_small
-    ref = cloudsc2_nl_pallas(s, dt, c, interpret=True, wb=128)
-    st = {
-        k: (tile_field(v, 128) if v.ndim == 2 else v) for k, v in s.items()
-    }
-    got = cloudsc2_nl_pallas(
-        st, dt, c, interpret=True, tile_layout=True, state_tiled=True
-    )
-    for r_d, g_d in zip(ref, got):
-        for n in r_d:
-            np.testing.assert_array_equal(
-                np.asarray(untile_field(g_d[n])), np.asarray(r_d[n]),
-                err_msg=n,
-            )
-
-
-def test_pallas_tl_ad_state_tiled_bit_exact(f32_state_small):
-    """TL and two-kernel AD under tiled-native storage: outputs, de-tiled,
-    are bitwise equal to the standard layout (the 3 trajectory streams
-    flow between the AD's kernels in tiled form with no relayout)."""
-    from cloudsc2_tpu.physics.increment import state_increment
-    from cloudsc2_tpu.pallas.adjoint import cloudsc2_ad_pallas
-    from cloudsc2_tpu.pallas.tangent_linear import cloudsc2_tl_pallas
-    from cloudsc2_tpu.pallas.levelscan import tile_field, untile_field
-
-    s, dt, c = f32_state_small
-    s = dict(s)
-    s.update(state_increment(s, 0.01, ignore_supsat=True))
-    tt, dd = cloudsc2_tl_pallas(s, dt, c, interpret=True, wb=128)
-    for n in ("t", "q", "ql", "qi"):
-        s["tnd_" + n] = tt[n]
-        s["tnd_" + n + "_i"] = tt[n + "_i"]
-    for n in ("clc", "covptot", "fhpsl", "fhpsn", "fplsl", "fplsn"):
-        s[n + "_i"] = dd[n + "_i"]
-    st = {k: (tile_field(v, 128) if v.ndim == 2 else v) for k, v in s.items()}
-
-    tt_t, dd_t = cloudsc2_tl_pallas(
-        s, dt, c, interpret=True, wb=128, unroll=1
-    )
-    got = cloudsc2_tl_pallas(
-        st, dt, c, interpret=True, unroll=1, tile_layout=True,
-        state_tiled=True,
-    )
-    for r_d, g_d in zip((tt_t, dd_t), got):
-        for n in r_d:
-            np.testing.assert_array_equal(
-                np.asarray(untile_field(g_d[n])), np.asarray(r_d[n]),
-                err_msg="tl:" + n,
-            )
-
-    ad_ref = cloudsc2_ad_pallas(s, dt, c, interpret=True, wb=128)
-    ad_got = cloudsc2_ad_pallas(
-        st, dt, c, interpret=True, tile_layout=True, state_tiled=True
-    )
-    for r_d, g_d in zip(ad_ref, ad_got):
-        for n in r_d:
-            np.testing.assert_array_equal(
-                np.asarray(untile_field(g_d[n])), np.asarray(r_d[n]),
-                err_msg="ad:" + n,
-            )
-
-
-def test_tile_field_roundtrip():
-    """tile_field/untile_field invert each other for 2-D level fields and
-    1-D per-column fields, and tiling preserves column identity (tile j,
-    lane l == global column order of the (8, w) view)."""
-    from cloudsc2_tpu.pallas.levelscan import tile_field, untile_field
-
-    rng = np.random.default_rng(0)
-    v2 = jnp.asarray(rng.standard_normal((7, 2048)), jnp.float32)
-    t2 = tile_field(v2, 128)
-    assert t2.shape == (2, 7, 8, 128)
-    np.testing.assert_array_equal(np.asarray(untile_field(t2)), np.asarray(v2))
-    # column identity: tile j covers lanes j*wb..(j+1)*wb of the (8, w) view
-    np.testing.assert_array_equal(
-        np.asarray(t2[1, 3]), np.asarray(v2[3].reshape(8, 256)[:, 128:])
-    )
-
-    v1 = jnp.asarray(rng.standard_normal(2048), jnp.float32)
-    t1 = tile_field(v1, 128)
-    assert t1.shape == (2, 8, 128)
-    np.testing.assert_array_equal(np.asarray(untile_field(t1)), np.asarray(v1))
-
-
-def test_dispatch_pallas_tiled_boundary(f32_state_small):
-    """impl="pallas-tiled" (dispatch): standard-layout in/out around the
-    state_tiled kernels — outputs bitwise equal to impl="pallas"."""
-    from cloudsc2_tpu.dispatch import nl_tl_fns
-
-    s, dt, c = f32_state_small
-    nl_t, _tl_t = nl_tl_fns("pallas-tiled")
-    ref = cloudsc2_nl_pallas(s, dt, c, interpret=True, unroll=1, wb=128)
-    got = nl_t(s, dt, c, interpret=True)
-    for r_d, g_d in zip(ref, got):
-        for n in r_d:
-            np.testing.assert_array_equal(
-                np.asarray(g_d[n]), np.asarray(r_d[n]), err_msg=n
-            )
-
-
-def test_pallas_tl_ad_output_elision_bit_exact(f32_state_small):
-    """tangent_only TL / cotangent_only AD (round-5 stream-count lever):
-    the duplicate forward-output streams are dropped; every output that
-    remains equals the full kernels' to ~1 ulp (the reduced out-stream
-    set retraces the kernel, and XLA's FMA contraction can differ
-    between the two fusions — observed 7/55k elements at 1.6e-7 rel)."""
-    from cloudsc2_tpu.physics.increment import state_increment
-    from cloudsc2_tpu.pallas.adjoint import cloudsc2_ad_pallas
-    from cloudsc2_tpu.pallas.tangent_linear import cloudsc2_tl_pallas
-
-    s, dt, c = f32_state_small
-    s = dict(s)
-    s.update(state_increment(s, 0.01, ignore_supsat=True))
-    tt, dd = cloudsc2_tl_pallas(s, dt, c, interpret=True, wb=128)
-    tt_o, dd_o = cloudsc2_tl_pallas(
-        s, dt, c, interpret=True, wb=128, tangent_only=True
-    )
-    assert set(tt_o) == {"t_i", "q_i", "ql_i", "qi_i"}
-    assert all(k.endswith("_i") for k in dd_o)
-    for got, ref in ((tt_o, tt), (dd_o, dd)):
-        for n in got:
-            np.testing.assert_allclose(
-                np.asarray(got[n]), np.asarray(ref[n]), rtol=5e-7,
-                atol=1e-9, err_msg=n,
-            )
-
-    for n in ("t", "q", "ql", "qi"):
-        s["tnd_" + n] = tt[n]
-        s["tnd_" + n + "_i"] = tt[n + "_i"]
-    for n in ("clc", "covptot", "fhpsl", "fhpsn", "fplsl", "fplsn"):
-        s[n + "_i"] = dd[n + "_i"]
-    at, ad = cloudsc2_ad_pallas(s, dt, c, interpret=True, wb=128)
-    at_o, ad_o = cloudsc2_ad_pallas(
-        s, dt, c, interpret=True, wb=128, cotangent_only=True
-    )
-    assert set(at_o) == {"cml_t_i", "cml_q_i", "cml_ql_i", "cml_qi_i"}
-    assert all(k.endswith("_i") for k in ad_o)
-    for got, ref in ((at_o, at), (ad_o, ad)):
-        for n in got:
-            np.testing.assert_allclose(
-                np.asarray(got[n]), np.asarray(ref[n]), rtol=5e-7,
-                atol=1e-9, err_msg=n,
-            )
-
-    with pytest.raises(ValueError, match="traj_only requires"):
-        cloudsc2_nl_pallas(s, dt, c, interpret=True, wb=128, traj_only=True)
-
-
-def test_pallas_tiled_evaporation_branch_bit_exact(f32_state_small):
-    """state_tiled with the precipitation-evaporation branch COMPILED IN
-    (LDRAIN1D=True): pins the evap-specific tiled plumbing that the
-    evap-off tests never touch — the aph_s lane flattening consumed by
-    the in-branch sqrt(ap/aph_s), the live c_cov trajectory stream, the
-    s_covptot_i seed, and the AD's tiled staggered surface-pressure
-    cotangent (aph_i[:, -1] accumulation in _assemble).  Review r5
-    finding: previously verified only by hand."""
-    from cloudsc2_tpu.physics.increment import state_increment
-    from cloudsc2_tpu.pallas.adjoint import cloudsc2_ad_pallas
-    from cloudsc2_tpu.pallas.tangent_linear import cloudsc2_tl_pallas
-    from cloudsc2_tpu.pallas.levelscan import tile_state, untile_field
-
-    s, dt, c0 = f32_state_small
-    c = c0.replace(LDRAIN1D=True)
-    s = dict(s)
-    s.update(state_increment(s, 0.01, ignore_supsat=True))
-
-    ref = cloudsc2_nl_pallas(s, dt, c, interpret=True, wb=128, unroll=1)
-    got = cloudsc2_nl_pallas(
-        tile_state(s, 128), dt, c, interpret=True, tile_layout=True,
-        state_tiled=True,
-    )
-    # the branch must actually fire for this test to mean anything
-    assert (np.asarray(ref[1]["covptot"]) != 0).any()
-    for r_d, g_d in zip(ref, got):
-        for n in r_d:
-            np.testing.assert_array_equal(
-                np.asarray(untile_field(g_d[n])), np.asarray(r_d[n]),
-                err_msg="nl:" + n,
-            )
-
-    tt, dd = cloudsc2_tl_pallas(s, dt, c, interpret=True, wb=128, unroll=1)
-    got = cloudsc2_tl_pallas(
-        tile_state(s, 128), dt, c, interpret=True, tile_layout=True,
-        state_tiled=True, unroll=1,
-    )
-    for r_d, g_d in zip((tt, dd), got):
-        for n in r_d:
-            np.testing.assert_array_equal(
-                np.asarray(untile_field(g_d[n])), np.asarray(r_d[n]),
-                err_msg="tl:" + n,
-            )
-
-    for n in ("t", "q", "ql", "qi"):
-        s["tnd_" + n] = tt[n]
-        s["tnd_" + n + "_i"] = tt[n + "_i"]
-    for n in ("clc", "covptot", "fhpsl", "fhpsn", "fplsl", "fplsn"):
-        s[n + "_i"] = dd[n + "_i"]
-    ad_ref = cloudsc2_ad_pallas(s, dt, c, interpret=True, wb=128)
-    ad_got = cloudsc2_ad_pallas(
-        tile_state(s, 128), dt, c, interpret=True, tile_layout=True,
-        state_tiled=True,
-    )
-    # the staggered surface-pressure cotangent path must be live
-    assert (np.asarray(ad_ref[1]["aph_i"])[-1] != 0).any()
-    for r_d, g_d in zip(ad_ref, ad_got):
-        for n in r_d:
-            np.testing.assert_array_equal(
-                np.asarray(untile_field(g_d[n])), np.asarray(r_d[n]),
-                err_msg="ad:" + n,
-            )
-
-
-def test_pallas_nl_fused_saturation_tiled_bit_exact(f32_state_small):
-    """fuse_saturation + state_tiled (the round-5 bench NL chain's exact
-    configuration — the fused form FLIPPED from its global-layout negative
-    to +5-12% under tiled storage): outputs bitwise equal to the unfused
-    tiled kernel, including the in-kernel qsat diagnostic (the wrapper
-    keeps the saturation division bit-identical)."""
-    from cloudsc2_tpu.pallas.levelscan import tile_state, untile_field
-
-    s, dt, c = f32_state_small
-    st = tile_state(s, 128)
-    ref = cloudsc2_nl_pallas(
-        st, dt, c, interpret=True, tile_layout=True, state_tiled=True
-    )
-    got = cloudsc2_nl_pallas(
-        st, dt, c, interpret=True, tile_layout=True, state_tiled=True,
-        fuse_saturation=True,
-    )
-    np.testing.assert_array_equal(
-        np.asarray(untile_field(got[1]["qsat"])), np.asarray(s["qsat"]),
-        err_msg="in-kernel qsat",
-    )
-    for r_d, g_d in zip(ref, got):
-        for n in r_d:
-            np.testing.assert_array_equal(
-                np.asarray(g_d[n]), np.asarray(r_d[n]), err_msg=n
-            )
-
-
-def test_pack_inputs_mixed_dtype_rejected():
-    """pack_inputs groups must be dtype-uniform (ADVICE r4): jnp.stack on
-    mixed dtypes would silently promote the packed stream instead of
-    raising, changing values; the harness must reject the group up front."""
-    from cloudsc2_tpu.pallas.levelscan import level_scan_pallas
-
-    a = jnp.zeros((4, 1024), jnp.float32)
-    b = jnp.zeros((4, 1024), jnp.bfloat16)
-
-    def body(carry, x, col, _g):
-        return carry, {"o": x["a"]}
-
-    with pytest.raises(ValueError, match="mixes dtypes"):
-        level_scan_pallas(
-            body,
-            level_inputs={"a": a, "b": b},
-            col_inputs={},
-            scalar_inputs={},
-            out_names=("o",),
-            ncarry=1,
-            kb=2,
-            wb=128,
-            interpret=True,
-            pack_inputs=(("a", "b"),),
-        )
-
-
-def test_pallas_nl_option_conflicts(f32_state_small):
-    """Guard paths of the round-4 kernel options: covptot cannot be elided
-    when the evaporation branch is live, and pack/pipeline refuse
-    incompatible mode combinations."""
-    s, dt, c = f32_state_small
-    with pytest.raises(ValueError, match="covptot is live"):
-        cloudsc2_nl_pallas(
-            s, dt, c.replace(LEVAPLS2=True), interpret=True, wb=128,
-            elide_covptot=True,
-        )
-    with pytest.raises(ValueError, match="pack is incompatible"):
-        cloudsc2_nl_pallas(s, dt, c, interpret=True, wb=128, pack=True, split=True)
-    with pytest.raises(ValueError, match="pipeline is incompatible"):
-        cloudsc2_nl_pallas(s, dt, c, interpret=True, wb=128, pipeline=True, split=True)
+@pytest.mark.gpu
+def test_kernels_compiled_on_gpu():
+    """The compiled kernels against scan at the benchmark width; runs on
+    the card only (``python chip_smoke.py`` runs the same comparison)."""
+    if jax.default_backend() != "gpu":
+        pytest.skip("needs a GPU: the compiled kernels have no CPU lowering")
+    c = _constants("default")
+    for scheme in ("nl", "tl", "ad"):
+        state, dt = scheme_state(scheme, 65536, np.float32, c)
+        scan, kernel = scheme_fns(scheme)
+        errs = field_errors(scan(state, dt, c), kernel(state, dt, c))
+        assert max(e[1] for e in errs.values()) <= 1e-3, errs

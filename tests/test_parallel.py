@@ -126,12 +126,12 @@ def test_full_step_reuses_tl_forward(state_with_qsat, constants):
 
 
 def test_shard_map_pallas_forward_step(constants):
-    """The Pallas kernel runs under shard_map: each device executes the
-    kernel on its local lane-aligned column shard, no communication."""
+    """The GPU kernel runs under shard_map: each device executes the kernel
+    (interpret mode here) on its local column shard, no communication."""
     from cloudsc2_tpu import iox
     from cloudsc2_tpu.parallel.step import make_sharded_forward_step
 
-    _, state_np, dt = iox.synthesize_input(ncols=8 * 4096, nlev=137, seed=0, dtype=np.float32)
+    _, state_np, dt = iox.synthesize_input(ncols=8 * 100, nlev=137, seed=0, dtype=np.float32)
     state = {k: jnp.asarray(v, jnp.float32) for k, v in state_np.items()}
     t_ref, _ = jax.jit(lambda s: forward_step(s, dt, constants, impl="scan"))(state)
 
@@ -256,7 +256,7 @@ def test_taylor_symmetry_drivers_sharded():
 
 def test_dryrun_multichip_full_workload():
     """The driver-invoked multi-chip dry run at its hardened contract
-    (VERDICT r3 weak #4): nlev=137, one lane-aligned tile per device, both
+    (VERDICT r3 weak #4): nlev=137, 128 columns per device, both
     ('node','device') mesh factorings, golden NL validation under sharding
     and the exact 1e4*eps symmetry gate — all asserted inside the function."""
     from __graft_entry__ import dryrun_multichip
